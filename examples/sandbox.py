@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 import starframe_tpu as sf
+from starframe_tpu import runtime
 
 SCENES = {
     "box_stack": lambda: sf.scenes.box_stack(),
@@ -57,6 +58,7 @@ def main():
         print("\n".join(sorted(SCENES)))
         return
 
+    runtime.configure()
     scene = SCENES[args.scene]()
     world = scene.world
 

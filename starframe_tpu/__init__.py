@@ -1,16 +1,15 @@
-"""starframe-tpu: a TPU-native, fully batched 2D rigid-body physics engine.
+"""starframe-tpu: a fully batched 2D rigid-body physics engine in JAX.
 
 A from-scratch rebuild of the capabilities of ``m0lentum/starframe`` (a Rust
-2D game-physics engine) designed TPU-first: the whole simulation step —
+2D game-physics engine) as array programs: the whole simulation step —
 broadphase, narrowphase, XPBD substep solve, velocity pass — runs as a single
 XLA-compiled program over fixed-capacity SoA arrays, batches thousands of
 independent worlds along a leading axis with ``jax.vmap``, and shards that
-axis over a TPU ICI mesh with ``jax.sharding``.
+axis over a device mesh with ``shard_map``.
 
-Reference provenance: the mounted reference snapshot is a migration tombstone
-(``/root/reference/README.md:1-3``); the normative capability spec is
-``SURVEY.md`` (§1-§7) and ``BASELINE.json`` in this repo. Citations in
-docstrings point there.
+Reference provenance: the normative capability spec is ``SURVEY.md``
+(§1-§7) and ``BASELINE.json`` in this repo. Citations in docstrings point
+there.
 
 Quick start::
 
@@ -62,13 +61,10 @@ from . import io
 from . import queries
 from .queries import raycast, query_point, query_aabb, RayHit
 from .diagnostics import Diagnostics
-from .parallel import (batch_worlds, batched_step_events,
+from .parallel import (batch_worlds, batched_rollout, batched_step_events,
                        make_batched_rollout, make_batched_step,
-                       make_sharded_step, make_shardmap_kernel_rollout,
-                       make_shardmap_kernel_step)
+                       make_sharded_step)
 from . import parallel
-from . import tiled
-from .tiled import sharded_tiled_rollout, tiled_rollout
 from .game import Game, GameState, FixedTimestep
 from .ropes import Rope, attach_rope
 from . import observer
@@ -120,12 +116,8 @@ __all__ = [
     "make_batched_rollout",
     "make_batched_step",
     "make_sharded_step",
-    "make_shardmap_kernel_rollout",
-    "make_shardmap_kernel_step",
+    "batched_rollout",
     "parallel",
-    "sharded_tiled_rollout",
-    "tiled",
-    "tiled_rollout",
     "Camera",
     "MeshInstance",
     "Game",

@@ -1,11 +1,11 @@
 """Broadphase: candidate pair generation, fixed capacity.
 
-TPU-native replacement for starframe's hierarchical spatial grid ("HGrid",
+Array-program replacement for starframe's hierarchical spatial grid ("HGrid",
 SURVEY.md §2 row 5; BASELINE.json:5 mandates a "sort-and-segment pair
 generator"). Two paths share one output contract:
 
 - ``dense``: masked O(M²) upper-triangular AABB test — fastest under a few
-  hundred colliders (one fused elementwise pass, no sort).
+  hundred colliders (one fused elementwise pass, one compaction sort).
 - ``grid``: spatial hash of AABB centers -> key sort -> 9-neighborhood
   segment scan with a bounded per-cell fan-out. Colliders whose AABB exceeds
   a few cells go through a small dense "large set" (the 2-level HGrid
@@ -91,10 +91,9 @@ def _pair_eligible(world: World, i, j):
 def _compact(mask_flat, idx_a_flat, idx_b_flat, max_pairs: int):
     """Compact masked candidates into the fixed pair buffer.
 
-    Lowering note: ``jnp.nonzero(size=)`` + gathers dominated the 10k-pile
-    broadphase (~150 ms/frame measured r2). A single key sort that carries
-    the packed (a, b) payload is ~40x cheaper on TPU: sort keys are 0 for
-    hits and 1 for misses (stable sort keeps hit order), then the first
+    Lowering note: one key sort that carries the packed (a, b) payload
+    replaces ``jnp.nonzero(size=)`` + gathers: sort keys are 0 for hits and
+    1 for misses (stable sort keeps hit order), then the first
     ``max_pairs`` slots are the compacted pairs."""
     count = jnp.sum(mask_flat, dtype=jnp.int32)
     key = jnp.where(mask_flat, jnp.int32(0), jnp.int32(1))
@@ -130,8 +129,8 @@ def dense_pairs(world: World, lo, hi, cap: Capacity) -> PairBuffer:
     return PairBuffer(pa, pb, valid, count, overflow, jnp.zeros((), jnp.int32))
 
 
-_HASH_X = jnp.int32(np.uint32(0x9E3779B1).astype(np.int32))  # int32 wraparound
-_HASH_Y = jnp.int32(np.uint32(0x85EBCA77).astype(np.int32))
+_HASH_X = np.uint32(0x9E3779B1).astype(np.int32)  # int32 wraparound
+_HASH_Y = np.uint32(0x85EBCA77).astype(np.int32)
 
 
 def _hash_cell(cx, cy):
@@ -141,7 +140,7 @@ def _hash_cell(cx, cy):
     return h & jnp.int32(0x7FFFFFFF)
 
 
-_SENTINEL = jnp.int32(0x7FFFFFFF)
+_SENTINEL = np.int32(0x7FFFFFFF)
 
 
 @jax.named_scope("broadphase_grid")
@@ -240,6 +239,9 @@ def grid_pairs(world: World, lo, hi, cap: Capacity, cfg: SolverConfig) -> PairBu
 def broadphase(world: World, lo, hi, cap: Capacity, cfg: SolverConfig) -> PairBuffer:
     mode = cfg.broadphase
     if mode == "auto":
+        # measured on an H100 (PERF.md, PR 1): dense beats grid by ~20% at
+        # 64 and 128 colliders, and grid at 256 overflows the default cell
+        # fan-out in a settling batch
         mode = "dense" if cap.max_colliders <= 384 else "grid"
     if mode == "dense":
         return dense_pairs(world, lo, hi, cap)

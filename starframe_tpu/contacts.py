@@ -1,6 +1,6 @@
 """Contact manifold storage (fixed capacity, SoA over the pair axis).
 
-The TPU-native equivalent of starframe's per-pair ``ContactResult`` manifolds
+The array-program equivalent of starframe's per-pair ``ContactResult`` manifolds
 (SURVEY.md §2 rows 6-7): one row per candidate pair, up to two contact points
 per manifold (2D feature clipping yields at most 2 — BASELINE.json:5), with
 body-local anchors and an A-frame-local normal so the XPBD substep loop can

@@ -28,7 +28,7 @@ def _dataclass_pytree(cls):
 @_dataclass_pytree
 class Diagnostics:
     pair_count: jax.Array  # i32 — candidate pairs found by broadphase
-    pair_overflow: jax.Array  # i32 — pairs dropped (MUST be 0; SURVEY.md §4.6)
+    pair_overflow: jax.Array  # i32 — pairs + large-set rows dropped (MUST be 0; SURVEY.md §4.6)
     cell_overflow: jax.Array  # i32 — grid cells fuller than the scan fan-out
     contact_count: jax.Array  # i32 — manifold points generated
     touching_count: jax.Array  # i32 — pairs actually in contact (sep < 0)
@@ -42,7 +42,8 @@ class Diagnostics:
         if int(np.asarray(self.pair_overflow)) != 0:
             raise RuntimeError(
                 f"pair buffer overflow: {int(self.pair_overflow)} pairs dropped — "
-                "raise Capacity.max_pairs"
+                "raise Capacity.max_pairs (or SolverConfig.max_large, the "
+                "grid broadphase's large-collider set)"
             )
         if int(np.asarray(self.cell_overflow)) != 0:
             raise RuntimeError(

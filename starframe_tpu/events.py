@@ -28,29 +28,6 @@ def touching_keys(contacts: Contacts, n_colliders: int):
     return a * jnp.int32(n_colliders) + b, contacts.touching
 
 
-def touching_keys_from_slots(touched, partner, n_colliders: int):
-    """Device-side canonical pair keys for the batched slot kernel's touch
-    output (parallel.frame2_step): ``touched``/``partner`` are [..., C, M]
-    slot tables (M = own collider on the last axis). Returns int32 keys of
-    the same shape, -1 where not touching. A dynamic-dynamic contact yields
-    its key in BOTH rows (identical after min/max canonicalization), so set
-    semantics downstream dedupe it."""
-    own = jnp.arange(touched.shape[-1], dtype=jnp.int32)
-    own = jnp.broadcast_to(own, touched.shape)
-    a = jnp.minimum(own, partner)
-    b = jnp.maximum(own, partner)
-    key = a * jnp.int32(n_colliders) + b
-    return jnp.where(touched > 0, key, -1)
-
-
-def slot_touch_set(touched, partner, n_colliders: int) -> set:
-    """Host-side set of touching ``(collider_a, collider_b)`` pairs (a < b)
-    for ONE world's slot tables."""
-    keys = np.asarray(touching_keys_from_slots(touched, partner, n_colliders))
-    keys = np.unique(keys[keys >= 0])
-    return {(int(k) // n_colliders, int(k) % n_colliders) for k in keys}
-
-
 def diff_contacts(prev: Contacts | None, cur: Contacts):
     """Host-side event sets: (started, persisted, ended), each a set of
     ``(collider_a, collider_b)`` tuples with a < b."""
@@ -94,13 +71,13 @@ class ContactEvents:
 
 def key_event_masks(prev_keys, cur_keys):
     """Device-side started/ended masks between consecutive frames' canonical
-    key tables (any shape; -1 marks empty slots) — the fast-path analogue of
-    :func:`diff_contacts` for the slot/tile engines (VERDICT r2 item 8).
+    key tables (any shape; -1 marks empty slots) — the on-device analogue of
+    :func:`diff_contacts` for batched rollouts
+    (:func:`starframe_tpu.parallel.batched_step_events`).
 
     ``started[i] = cur_keys[i] >= 0 and cur_keys[i] not in prev_keys`` and
-    symmetrically for ``ended``. Duplicate keys (dynamic-dynamic pairs occur
-    in both owner rows) simply produce the same mask value twice; reduce to
-    sets downstream when uniqueness matters."""
+    symmetrically for ``ended``. Duplicate keys simply produce the same
+    mask value twice; reduce to sets downstream when uniqueness matters."""
     p = jnp.sort(prev_keys.reshape(-1))
     c = jnp.sort(cur_keys.reshape(-1))
 

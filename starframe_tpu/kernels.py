@@ -1,17 +1,14 @@
 """Batched P-last compute kernels: narrowphase manifold + contact solve.
 
-Layout is the whole story here. The naive per-pair-vmapped math produces
-arrays like ``[P, 2, 2]`` and ``[P, V, 2]`` whose *trailing* dims get padded
-to the TPU's (8, 128) vector tiles — up to 256x wasted HBM bandwidth and
-VMEM. These kernels put the pair axis LAST (``[V, P]``, ``[P]``) and split
-x/y into separate arrays, so every elementwise op runs on exactly-tiled
-``[*, P]`` lanes. Same math as :func:`narrowphase.manifold_pair` (the scalar
-reference kept for unit tests; a parity test pins them together).
+These are plain ``jax.numpy`` functions that XLA fuses. The pair axis is
+LAST (``[V, P]``, ``[P]``) and x/y live in separate arrays, so every
+elementwise op runs over contiguous ``[*, P]`` rows instead of small padded
+trailing dims (``[P, 2, 2]``, ``[P, V, 2]``). Same math as
+:func:`narrowphase.manifold_pair` (the scalar reference kept for unit
+tests; a parity test pins them together).
 
-Accumulation pair->body uses a one-hot MXU contraction (``[4, P] @ [P, N]``)
-instead of XLA scatter (which serializes on TPU) — BASELINE.json:5's
-"graph-colored batches to avoid write conflicts" realized as conflict-free
-matmul reduction instead.
+The solve functions return per-pair ``[4, P]`` contribution rows; the
+solver sums them into bodies (:func:`solver._accumulate_contacts`).
 """
 
 from __future__ import annotations
@@ -47,8 +44,8 @@ def _edge_data_b(vx, vy, n_valid):
     edge_valid [V, P]. The wrap "gather" is a static roll + masked overwrite.
     """
     V = vx.shape[0]
-    # broadcasted_iota: 1D iota does not lower on TPU/pallas; rank tracks the
-    # input so the same code runs on [V, P] and G-packed [V, G, P] arrays
+    # rank tracks the input so the same code runs on [V, P] and packed
+    # [V, G, P] arrays
     idx = jax.lax.broadcasted_iota(jnp.int32, (V,) + (1,) * (vx.ndim - 1), 0)
     wrap = idx == (n_valid[None, :] - 1)  # [V, P]
     e1x = jnp.where(wrap, vx[0][None, :], jnp.roll(vx, -1, axis=0))
@@ -71,7 +68,7 @@ def _sat_b(e0x, e0y, nx, ny, valid, ox, oy):
     Returns (sep[P], onehot[V, P] of the argmax edge).
     """
     # min_j (n . o_j), statically unrolled over the other shape's verts
-    # (W <= 8): avoids a [V, W, P] cube in VMEM and stays pallas-safe
+    # (W <= 8): avoids materializing a [V, W, P] cube
     W = ox.shape[0]
     mn = nx * ox[0][None, :] + ny * oy[0][None, :]  # [V, P]
     for j in range(1, W):
@@ -85,8 +82,7 @@ def _sat_b(e0x, e0y, nx, ny, valid, ox, oy):
 
 def _first_true(mask):
     """f32 one-hot of the first True row per column (static unroll over the
-    small leading axis — pallas-safe: no cumsum, no bool stacking/selects,
-    which Mosaic cannot lower for i1 vectors)."""
+    small leading axis)."""
     V = mask.shape[0]
     seen = mask[0]
     rows = [mask[0].astype(jnp.float32)]
@@ -188,8 +184,7 @@ def manifold_batch(vax, vay, na, ra, vbx, vby, nb, rb, margin) -> ManifoldB:
     oha = _first_true(inc_a == mina[None])
     ohb = _first_true(inc_b == minb[None])
     # incident is on the OTHER shape from the reference: B when not flipped,
-    # A when flipped — hence pick(B-variant, A-variant). Written with logical
-    # ops, not where: Mosaic cannot select between i1 vectors.
+    # A when flipped — hence pick(B-variant, A-variant).
     i_has = (flip & a_has) | (jnp.logical_not(flip) & b_has)
     i0x = pick(jnp.where(b_has, _select_b(ohb, e0bx), vbx[0]),
                jnp.where(a_has, _select_b(oha, e0ax), vax[0]))
@@ -282,7 +277,7 @@ def manifold_batch(vax, vay, na, ra, vbx, vby, nb, rb, margin) -> ManifoldB:
 
     pmask0 = (seps[0] < margin).astype(jnp.float32)
     pmask1 = (use_clip & clip_distinct & (seps[1] < margin)).astype(jnp.float32)
-    pmask = jnp.stack([pmask0, pmask1])  # f32 0/1: Mosaic can't stack i1
+    pmask = jnp.stack([pmask0, pmask1])  # f32 0/1
 
     flipn = jnp.where(flip, -1.0, 1.0)
     n_x = noutx * flipn
@@ -300,12 +295,8 @@ def manifold_batch(vax, vay, na, ra, vbx, vby, nb, rb, margin) -> ManifoldB:
 
 
 class PairPose(NamedTuple):
-    """Per-pair gathered poses (position + cos/sin), P-last [P] components.
-
-    The XLA path fills this with index gathers (gather_pair_pose); the
-    Pallas whole-frame kernel fills it with one-hot MXU dots — the math
-    downstream is shared.
-    """
+    """Per-pair gathered poses (position + cos/sin), P-last [P] components
+    (filled by :func:`gather_pair_pose`)."""
 
     pax: jax.Array
     pay: jax.Array
@@ -445,16 +436,11 @@ def bullet_advance_scale(pose0: PairPose, pose1: PairPose, pd,
 
 
 def solve_contacts_b(pose: PairPose, pose0: PairPose, pd, cb_: ContactsB,
-                     h: float, contact_compliance: float, kin0=None):
+                     h: float, contact_compliance: float):
     """XPBD contact projection, P-last. Returns (vals_a[4,P], vals_b[4,P],
     lam_n[2,P]) where vals rows are (dpos_x, dpos_y, dang, count) ready for
-    the one-hot accumulation matmul.
-
-    ``kin0``: optional precomputed substep-start anchor world positions
-    ``(wax0, way0, wbx0, wby0)`` (the static-friction reference). When given,
-    ``pose0`` may be None and its kinematics are not recomputed — frame2's
-    substep loop carries the previous velocity pass's kinematics here (the
-    end-of-substep pose IS the next substep's start pose)."""
+    the pair->body accumulation. ``pose0`` (substep-start poses) is the
+    static-friction reference."""
     im_a = pd.inv_mass_a[None]  # [1, P]
     im_b = pd.inv_mass_b[None]
     ii_a = pd.inv_inertia_a[None]
@@ -478,10 +464,7 @@ def solve_contacts_b(pose: PairPose, pose0: PairPose, pd, cb_: ContactsB,
     p_y = dlam * nyp
 
     # static friction at position level
-    if kin0 is not None:
-        wax0, way0, wbx0, wby0 = kin0
-    else:
-        _, _, _, _, _, _, wax0, way0, wbx0, wby0 = _pair_kinematics(cb_, pose0)
+    _, _, _, _, _, _, wax0, way0, wbx0, wby0 = _pair_kinematics(cb_, pose0)
     dpx = (wax - wax0) - (wbx - wbx0)
     dpy = (way - way0) - (wby - wby0)
     dpn = dpx * nxp + dpy * nyp
@@ -517,19 +500,16 @@ def solve_contacts_b(pose: PairPose, pose0: PairPose, pd, cb_: ContactsB,
 
 def velocity_contacts_b(pose: PairPose, pvel: PairVel, pvel0: PairVel,
                         pd, cb_: ContactsB, lam_n, h: float,
-                        restitution_threshold: float, kin=None):
+                        restitution_threshold: float):
     """Restitution + dynamic friction velocity impulses, P-last.
     Returns (vals_a[4,P], vals_b[4,P]) for accumulation (rows: dvx, dvy,
-    dang, count). ``kin``: optional precomputed ``_pair_kinematics(cb_,
-    pose)`` (callers that also need the world anchor positions compute it
-    once and share it)."""
+    dang, count)."""
     im_a = pd.inv_mass_a[None]
     im_b = pd.inv_mass_b[None]
     ii_a = pd.inv_inertia_a[None]
     ii_b = pd.inv_inertia_b[None]
 
-    nx, ny, rax, ray, rbx, rby, *_ = (
-        kin if kin is not None else _pair_kinematics(cb_, pose))
+    nx, ny, rax, ray, rbx, rby, *_ = _pair_kinematics(cb_, pose)
     nxp, nyp = nx[None], ny[None]
 
     def point_vel(vx, vy, om, rx, ry):
@@ -585,150 +565,3 @@ def velocity_contacts_b(pose: PairPose, pvel: PairVel, pvel0: PairVel,
     vals_a = jnp.stack([-cb_x * pd.inv_mass_a, -cb_y * pd.inv_mass_a, dang_a, n_act])
     vals_b = jnp.stack([cb_x * pd.inv_mass_b, cb_y * pd.inv_mass_b, dang_b, n_act])
     return vals_a, vals_b
-
-
-# ---------------------------------------------------------------------------
-# Slot-form joint solve (for the whole-frame kernel: each body's joint slots
-# are canonicalized own-as-A, so only the own-side correction is produced;
-# the partner computes its own half in its own slot row)
-# ---------------------------------------------------------------------------
-
-
-def _wrap_pi(x):
-    """Wrap to (-pi, pi] without mod (pallas-safe)."""
-    two_pi = 2.0 * jnp.pi
-    return x - two_pi * jnp.floor((x + jnp.pi) / two_pi)
-
-
-def solve_joints_b(pose: "PairPose", an_o, an_p, jd, h: float):
-    """XPBD joint position projection, slot-form P-last. ``pose`` carries the
-    own (A) and partner (B) poses; ``an_o``/``an_p`` the raw angles (for the
-    angular rows). ``jd`` fields (each [S]): jtype, oax, oay (own anchor),
-    pax, pay (partner anchor), rest, lo, hi, compliance, im_o, im_p, ii_o,
-    ii_p, active. Returns own-side vals [4, S] (dpos_x, dpos_y, dang, count).
-
-    Mirrors solver.solve_joint_positions (the row-major XLA twin); anchors
-    and rest/lo/hi/motor_speed must be pre-canonicalized so the OWN body is
-    endpoint A (distance/pin are swap-symmetric; weld/range/motor negate).
-    """
-    from .state import (
-        JOINT_ANGLE_RANGE,
-        JOINT_DISTANCE,
-        JOINT_PIN,
-        JOINT_WELD,
-    )
-
-    jt = jd.jtype
-    wax = pose.pax + pose.ca * jd.oax - pose.sa * jd.oay
-    way = pose.pay + pose.sa * jd.oax + pose.ca * jd.oay
-    wbx = pose.pbx + pose.cb * jd.pax - pose.sb * jd.pay
-    wby = pose.pby + pose.sb * jd.pax + pose.cb * jd.pay
-    rax = wax - pose.pax
-    ray = way - pose.pay
-    rbx = wbx - pose.pbx
-    rby = wby - pose.pby
-
-    dx = wbx - wax
-    dy = wby - way
-    d = jnp.sqrt(dx * dx + dy * dy)
-    inv_d = 1.0 / jnp.maximum(d, _EPS)
-    nx = dx * inv_d
-    ny = dy * inv_d
-
-    is_dist = jt == JOINT_DISTANCE
-    is_point = (jt == JOINT_PIN) | (jt == JOINT_WELD)
-    lo = jnp.where(is_point, 0.0, jd.lo)
-    hi = jnp.where(is_point, 0.0, jd.hi)
-    c_lin = jnp.where(d > hi, d - hi, jnp.where(d < lo, d - lo, 0.0))
-    lin_active = (is_dist | is_point) & (jnp.abs(c_lin) > 0.0) & (d > _EPS) \
-        & (jd.active > 0)
-
-    cr_a = rax * ny - ray * nx
-    cr_b = rbx * ny - rby * nx
-    w_a = jd.im_o + jd.ii_o * cr_a * cr_a
-    w_b = jd.im_p + jd.ii_p * cr_b * cr_b
-    alpha_t = jd.compliance / (h * h)
-    den = w_a + w_b + alpha_t
-    dlam = jnp.where(lin_active & (den > _EPS),
-                     -c_lin / jnp.maximum(den, _EPS), 0.0)
-    p_x = dlam * nx
-    p_y = dlam * ny
-
-    # angular rows (weld locks relative angle; angle_range limits it)
-    phi = _wrap_pi(an_p - an_o - jd.rest)
-    is_weld = jt == JOINT_WELD
-    is_rng = jt == JOINT_ANGLE_RANGE
-    c_ang = jnp.where(
-        is_weld, phi,
-        jnp.where(phi > jd.hi, phi - jd.hi,
-                  jnp.where(phi < jd.lo, phi - jd.lo, 0.0)))
-    ang_active = (is_weld | is_rng) & (jnp.abs(c_ang) > 0.0) & (jd.active > 0)
-    den_a = jd.ii_o + jd.ii_p + alpha_t
-    dlam_ang = jnp.where(ang_active & (den_a > _EPS),
-                         -c_ang / jnp.maximum(den_a, _EPS), 0.0)
-
-    n_active = lin_active.astype(jnp.float32) + ang_active.astype(jnp.float32)
-    return jnp.stack([
-        -p_x * jd.im_o,
-        -p_y * jd.im_o,
-        -jd.ii_o * (rax * p_y - ray * p_x) - dlam_ang * jd.ii_o,
-        n_active,
-    ])
-
-
-def velocity_joints_b(pose: "PairPose", pvel: "PairVel", jd, h: float):
-    """Joint velocity rows, slot-form: angular motors + joint damping.
-    Returns own-side vals [4, S]. Mirrors solver.velocity_joints."""
-    from .state import JOINT_ANGULAR_MOTOR
-
-    is_motor = (jd.jtype == JOINT_ANGULAR_MOTOR) & (jd.active > 0)
-    err = jd.motor_speed - (pvel.ob - pvel.oa)
-    w_ang = jd.ii_o + jd.ii_p
-    lam_m = jnp.where(w_ang > _EPS, err / jnp.maximum(w_ang, _EPS), 0.0)
-    lam_m = jnp.clip(lam_m, -jd.motor_max * h, jd.motor_max * h)
-    lam_m = jnp.where(is_motor, lam_m, 0.0)
-
-    damped = (jd.active > 0) & (jd.damping > 0.0)
-    wax = pose.pax + pose.ca * jd.oax - pose.sa * jd.oay
-    way = pose.pay + pose.sa * jd.oax + pose.ca * jd.oay
-    wbx = pose.pbx + pose.cb * jd.pax - pose.sb * jd.pay
-    wby = pose.pby + pose.sb * jd.pax + pose.cb * jd.pay
-    rax = wax - pose.pax
-    ray = way - pose.pay
-    rbx = wbx - pose.pbx
-    rby = wby - pose.pby
-    relx = (pvel.vbx - pvel.ob * rby) - (pvel.vax - pvel.oa * ray)
-    rely = (pvel.vby + pvel.ob * rbx) - (pvel.vay + pvel.oa * rax)
-    w_lin = jd.im_o + jd.im_p
-    damp_f = jnp.minimum(jd.damping * h, 1.0)
-    scale = jnp.where(w_lin > _EPS, damp_f / jnp.maximum(w_lin, _EPS), 0.0)
-    p_dx = jnp.where(damped, -relx * scale, 0.0)
-    p_dy = jnp.where(damped, -rely * scale, 0.0)
-
-    j_act = (is_motor | damped).astype(jnp.float32)
-    return jnp.stack([
-        -p_dx * jd.im_o,
-        -p_dy * jd.im_o,
-        -lam_m * jd.ii_o - jd.ii_o * (rax * p_dy - ray * p_dx),
-        j_act,
-    ])
-
-
-def accumulate_onehot(vals_a, vals_b, onehot_a, onehot_b):
-    """[4, P] @ [P, N] one-hot contraction -> (dpos[N,2], dang[N], count[N])."""
-    hp = jax.lax.Precision.HIGHEST  # DEFAULT would bf16-round the values
-    out = jax.lax.dot_general(
-        vals_a, onehot_a, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=hp,
-    ) + jax.lax.dot_general(
-        vals_b, onehot_b, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=hp,
-    )  # [4, N]
-    return out[:2].T, out[2], out[3]
-
-
-def accumulate_scatter(vals_a, vals_b, body_a, body_b, n: int):
-    """Scatter fallback for large worlds (one-hot would be [P, N] huge)."""
-    out = jnp.zeros((n, 4), jnp.float32)
-    out = out.at[body_a].add(vals_a.T).at[body_b].add(vals_b.T)
-    return out[:, :2], out[:, 2], out[:, 3]

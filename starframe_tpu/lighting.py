@@ -2,7 +2,7 @@
 
 Starframe's recent lighting system is a radiance-cascades-style 2D GI pass
 over the scene (point/area emitters, occluders, soft penumbrae). The
-TPU-native rebuild expresses the whole pipeline as dense array work under
+array-program rebuild expresses the whole pipeline as dense array work under
 jit — scene rasterization, per-cascade interval raymarching, and the
 top-down cascade merge are maps/scans over image grids, which is exactly
 the shape XLA vectorizes well. This is a rendering feature (off the physics

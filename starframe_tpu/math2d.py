@@ -1,6 +1,6 @@
 """2D math core: rotations, poses (isometries), AABB helpers.
 
-TPU-native equivalent of starframe's math layer (expected upstream
+Array-program equivalent of starframe's math layer (expected upstream
 ``src/math.rs``: ``Pose``/``Vec2``/``Rotor2``/``AABB`` — SURVEY.md §2 row 1;
 the pose+velocity body model is driver-normative, BASELINE.json:5).
 

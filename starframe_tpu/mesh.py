@@ -1,11 +1,11 @@
 """2D meshes, skins, and skeletal animation (SURVEY.md §2 row 16).
 
 Starframe's graphics stack imports glTF meshes with skins and samples
-skeletal animations on the CPU before uploading to wgpu. The TPU-native
+skeletal animations on the CPU before uploading to wgpu. The array-program
 rebuild keeps assets host-side (numpy) and makes the hot per-frame work —
 forward kinematics and linear-blend skinning — a batched JAX computation:
 skinning is one ``[V, K]``-weighted gather of bone transforms applied as
-fused multiply-adds (vmappable over instances, MXU-friendly at scale).
+fused multiply-adds (vmappable over instances, matrix-unit friendly at scale).
 
 Components:
 

@@ -1,7 +1,7 @@
 """Narrowphase: one vectorized manifold kernel for all shape pairs.
 
 Starframe dispatches per shape pair (circle/capsule/convex-poly via GJK +
-feature clipping — BASELINE.json:5, SURVEY.md §2 row 6). A TPU wants one
+feature clipping — BASELINE.json:5, SURVEY.md §2 row 6). An accelerator wants one
 branch-free kernel, not a dispatch tree, so this module implements contact
 generation for the *unified* shape: a rounded convex polygon (core vertices +
 dilation radius; circle = 1 vertex, capsule = 2). The algorithm produces the
@@ -28,7 +28,9 @@ import jax
 import jax.numpy as jnp
 
 from . import math2d as m2
+from . import segment
 from .contacts import Contacts
+from .segment import SegmentPlan
 from .state import COL_SENSOR, World
 
 _PARALLEL_COS = 0.98  # |cos| above which edges count as parallel
@@ -52,8 +54,8 @@ def _select_row(rows, idx):
     """rows[idx] without a dynamic gather: one-hot mask + sum-reduce.
 
     Under vmap over the pair axis, per-pair scalar-index gathers lower to
-    element-granularity gather ops that dominate the whole narrowphase on
-    TPU (measured ~50% of kernel time); a masked sum is pure VPU work.
+    element-granularity gather ops; a masked sum is plain elementwise
+    work.
     rows: [V, ...]; idx: scalar int. Returns rows[idx] with shape rows[1:].
     """
     V = rows.shape[0]
@@ -90,8 +92,8 @@ def _sat(e0, normals, edge_valid, verts_other):
     buffer is exact without a mask. Returns (best_sep, best_idx).
 
     NOTE: written as broadcast-multiply-sum, NOT einsum/@ — under vmap over
-    the pair axis a contraction lowers to millions of 8x8 MXU matmuls at
-    <1% utilization; elementwise keeps this on the VPU (measured 100x).
+    the pair axis a contraction lowers to millions of tiny 8x8 matrix
+    products; elementwise keeps it one fused pass.
     """
     # support distance: min_j n_i . w_j  -  n_i . e0_i
     proj = (normals[:, None, :] * verts_other[None, :, :]).sum(-1)  # [V, W]
@@ -276,7 +278,7 @@ class PairData:
     per-substep narrowphase + solve touch no large gathers — only the
     [P]-sized pose lookups change per substep. Vertex buffers are stored
     P-last with split x/y (``[V, P]``) so every per-substep elementwise op
-    maps onto exact (8, 128) vector tiles (see kernels.py docstring).
+    runs over contiguous rows (see kernels.py docstring).
     """
 
     pair_a: jax.Array  # [P] i32 collider idx
@@ -299,10 +301,8 @@ class PairData:
     inv_mass_b: jax.Array  # [P] f32
     inv_inertia_a: jax.Array  # [P] f32
     inv_inertia_b: jax.Array  # [P] f32
-    # one-hot accumulation matrices [P, N] (None when the scatter path is
-    # chosen for large N — SolverConfig.accum)
-    onehot_a: jax.Array | None
-    onehot_b: jax.Array | None
+    # pair->body accumulation order over concat(body_a, body_b) [2P]
+    plan: SegmentPlan
 
     @property
     def p(self) -> int:
@@ -310,8 +310,7 @@ class PairData:
 
 
 @jax.named_scope("build_pair_data")
-def build_pair_data(colliders, bodies, pair_a, pair_b, pair_valid,
-                    with_onehot: bool) -> PairData:
+def build_pair_data(colliders, bodies, pair_a, pair_b, pair_valid) -> PairData:
     """Hoist all frame-constant per-pair lookups out of the substep loop."""
     c = colliders
     ca, cb = pair_a, pair_b
@@ -320,12 +319,6 @@ def build_pair_data(colliders, bodies, pair_a, pair_b, pair_valid,
     va = c.verts[ca]  # [P, V, 2]
     vb = c.verts[cb]
     n = bodies.inv_mass.shape[0]
-    if with_onehot:
-        rng = jnp.arange(n, dtype=body_a.dtype)[None, :]
-        onehot_a = (body_a[:, None] == rng).astype(jnp.float32)
-        onehot_b = (body_b[:, None] == rng).astype(jnp.float32)
-    else:
-        onehot_a = onehot_b = None
     return PairData(
         pair_a=ca,
         pair_b=cb,
@@ -347,8 +340,7 @@ def build_pair_data(colliders, bodies, pair_a, pair_b, pair_valid,
         inv_mass_b=bodies.inv_mass[body_b],
         inv_inertia_a=bodies.inv_inertia[body_a],
         inv_inertia_b=bodies.inv_inertia[body_b],
-        onehot_a=onehot_a,
-        onehot_b=onehot_b,
+        plan=segment.plan(jnp.concatenate([body_a, body_b]), n),
     )
 
 

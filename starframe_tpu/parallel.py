@@ -1,12 +1,12 @@
-"""Batched and sharded worlds: vmap over a leading world axis, sharded over a
-TPU ICI mesh.
+"""Batched and sharded worlds: ``vmap`` over a leading world axis, sharded
+over a 1-D device mesh.
 
-The reference is a single-process engine; its TPU-native scaling analogue
+The reference is a single-process engine; its data-parallel scaling analogue
 (SURVEY.md §2.9) is (a) thousands of independent worlds batched with ``vmap``
-(BASELINE.json:11 — 4096 × 256-body worlds on one chip) and (b) the world
-axis sharded over devices with ``jax.sharding`` on a 1-D mesh, where XLA
-inserts zero cross-chip traffic on the hot path (worlds are independent) and
-``psum``-style collectives appear only in aggregate metrics.
+(BASELINE.json:11 — 4096 × 256-body worlds on one device) and (b) the world
+axis sharded over devices with ``shard_map``: worlds are independent, so the
+step has no cross-device traffic, and collectives appear only in aggregate
+metrics (:func:`global_metrics`).
 """
 
 from __future__ import annotations
@@ -19,15 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-
-def _shard_map(f, mesh, in_specs, out_specs):
-    # check_vma=False: the kernel path is per-shard pallas_call work with no
-    # collectives; varying-manual-axes inference has nothing to verify and
-    # rejects closed-over constants
-    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-
 from .config import SolverConfig
+from .events import touching_keys
 from .state import World
 from .step import step
 
@@ -46,447 +39,51 @@ def world_slice(batched: World, i: int) -> World:
     return jax.tree.map(lambda x: x[i], batched)
 
 
-def frame2_shapes_ok(worlds: World, cfg: SolverConfig, n_shards: int = 1) -> bool:
-    """Shape/config half of the slot-kernel eligibility decision (platform-
-    independent; interpret-mode callers use this directly).
-
-    The kernel's collider->body reduction uses world 0's topology for the
-    whole batch by default — ``cfg.batch_uniform_topology`` is the user's
-    promise that worlds share it (true for ``replicate_world``/same-built
-    scenes). ``batch_uniform_topology=False`` no longer disqualifies the
-    kernel (r4): heterogeneous batches ride per-world owner tables
-    (:func:`collider_owner_tables`) instead of falling to ``vmap(step)``.
-    With ``n_shards > 1`` the check applies to the per-device world count a
-    ``shard_map`` over an ``n_shards``-device mesh would see.
-    """
-    if cfg.use_pallas is False:
-        return False
-    if cfg.ccd and cfg.manifold_refresh != "frame":
-        return False  # step.py raises on this combination anyway
-    n, m = worlds.bodies.n, worlds.colliders.m
-    w = worlds.bodies.pos.shape[0]
-    if w % n_shards != 0:
-        return False
-    w = w // n_shards
-    # lane gathers need 128-multiples; the dense [M, M] slot mask needs to
-    # stay VMEM-resident (big single worlds take the XLA grid path instead).
-    # The sublane (world) block dim must be divisible by 8 OR equal the array
-    # dim (Mosaic rule), so small shards (w <= 8) are fine as one block.
-    if n % 128 != 0 or m % 128 != 0 or m > 1024 or (w % 8 != 0 and w > 8):
-        return False
-    return worlds.joints.j <= 1024
+def _vmapped_step(worlds: World, cfg: SolverConfig, max_pairs: int):
+    """``step`` over the leading world axis -> (worlds, contacts, diag), each
+    with a leading world axis."""
+    return jax.vmap(lambda w: step(w, cfg, max_pairs))(worlds)
 
 
-def use_pallas_frame2(worlds: World, cfg: SolverConfig, n_shards: int = 1) -> bool:
-    """Static decision: run the batched slot kernel (pallas/frame2.py)?
-
-    All conditions are shape/config-static so the choice is stable under
-    jit: :func:`frame2_shapes_ok` plus a TPU default device (the kernels
-    only lower through Mosaic).
-    """
-    if not frame2_shapes_ok(worlds, cfg, n_shards):
-        return False
-    try:
-        dev = jax.devices()[0]
-    except Exception:
-        return False
-    return dev.platform == "tpu" or "TPU" in getattr(dev, "device_kind", "")
+def _batch_keys(worlds: World, contacts):
+    """Per-world canonical touching-pair keys ``[W, P]`` (-1 where the pair
+    slot is not touching) — :func:`events.touching_keys` over the batch."""
+    m = worlds.colliders.m
+    keys, touching = jax.vmap(lambda c: touching_keys(c, m))(contacts)
+    return jnp.where(touching, keys, -1)
 
 
-def _frame2_arrays(worlds: World, cfg: SolverConfig):
-    """XLA-side prep for the two Pallas kernels: flat f32/i32 [W, ...] views.
-
-    With sleeping enabled, sleepers are frozen EXACTLY for the frame: their
-    inverse masses and gravity response are zeroed (awake neighbors solve
-    against them as static — same semantics as the XLA path's freeze), but
-    ``responds``/``moves`` keep the TRUE values so sleeping partners stay in
-    awake bodies' candidate rows (support contacts) and keep their own rows
-    (wake detection)."""
-    b, c = worlds.bodies, worlds.colliders
-    from .state import BODY_BULLET, BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR
-
-    f32 = jnp.float32
-    responds = ((b.inv_mass > 0) | (b.inv_inertia > 0)).astype(f32)
-    kin = ((b.flags & BODY_KINEMATIC) != 0).astype(f32)
-    moves = jnp.maximum(responds, kin)
-    invm, invi = b.inv_mass, b.inv_inertia
-    if cfg.sleep_velocity > 0.0:
-        asleep = (b.sleep_count >= cfg.sleep_frames) & (b.inv_mass > 0)
-        awake_f = 1.0 - asleep.astype(f32)
-        invm = invm * awake_f
-        invi = invi * awake_f
-    body = dict(
-        posx=b.pos[..., 0], posy=b.pos[..., 1], ang=b.angle,
-        velx=b.vel[..., 0], vely=b.vel[..., 1], angvel=b.ang_vel,
-        invm=invm, invi=invi,
-        dyn=(invm > 0).astype(f32), kin=kin,
-        responds=responds, moves=moves,
-        bullet=((b.flags & BODY_BULLET) != 0).astype(f32),
-    )
-    col = dict(
-        cbody=c.body_idx,
-        vlx=jnp.swapaxes(c.verts[..., 0], -1, -2),  # [W, V, M]
-        vly=jnp.swapaxes(c.verts[..., 1], -1, -2),
-        nverts=c.nverts, radius=c.radius,
-        fric=c.friction, rest=c.restitution,
-        layer=c.layer, lmask=c.mask,
-        active=((c.flags & COL_ACTIVE) != 0).astype(f32),
-        sensor=((c.flags & COL_SENSOR) != 0).astype(f32),
-    )
-    return body, col
+def _overflow_diag(d) -> dict:
+    """Hard truncation counters of a batched frame, reduced over worlds:
+    ``pair_overflow`` (candidate pairs dropped past ``max_pairs``) and
+    ``cell_overflow`` (grid cells fuller than the scan fan-out). Both must
+    be 0 for trustworthy physics (SURVEY.md §4.6)."""
+    return dict(pair_overflow=jnp.max(d.pair_overflow),
+                cell_overflow=jnp.max(d.cell_overflow))
 
 
-def _gmag(worlds: World) -> jax.Array:
-    """Per-world gravity magnitude ``[W, 1]``."""
-    g = jnp.broadcast_to(worlds.gravity, (worlds.bodies.pos.shape[0], 2))
-    return jnp.sqrt(jnp.sum(g * g, axis=-1, keepdims=True))
-
-
-def _sweep_bounds(worlds: World, cfg: SolverConfig, K: int) -> jax.Array:
-    """Per-body speed bound ``|v| + |g| * K * dt`` the K-frame slot tables
-    are valid for ``[W, N]``. Magnitude-based (not per-component): contact
-    impulses routinely rotate velocity between components (a falling box
-    landing acquires sideways velocity), which must not invalidate the
-    tables; only a genuine SPEED gain beyond what gravity can add over the
-    window (momentum transfer from a faster body) does."""
-    b = worlds.bodies
-    g = jnp.broadcast_to(worlds.gravity, (b.pos.shape[0], 2))
-    gmag = jnp.sqrt(jnp.sum(g * g, axis=-1, keepdims=True))  # [W, 1]
-    dyn = (b.inv_mass > 0).astype(jnp.float32)
-    speed = jnp.sqrt(jnp.sum(b.vel**2, axis=-1))
-    bound = speed + (gmag * (K * cfg.dt) + cfg.broadphase_speed_slack) * dyn
-    # headroom covers window-long impulse accumulation (see config.py);
-    # only dynamic bodies get it — kinematic velocity is constant, so its
-    # raw bound is already exact
-    return bound * (1.0 + (cfg.broadphase_budget_headroom - 1.0) * dyn)
-
-
-def frame2_elig(worlds: World, cfg: SolverConfig, interpret: bool = False):
-    """Static pair-eligibility mask ``[W, M, M] i8`` for table builds —
-    constant across a rollout (topology/layers/flags only), so rollouts
-    compute it once and every rebuild inside the scan skips that work."""
-    body, col = _frame2_arrays(worlds, cfg)
-    from .pallas.slots import build_elig_mask
-
-    return build_elig_mask(
-        col["cbody"], col["layer"], col["lmask"], col["active"],
-        col["sensor"], body["responds"], body["moves"], interpret=interpret)
-
-
-def collider_owner_tables(worlds: World, cfg: SolverConfig):
-    """Per-world collider-OWNER tables for the heterogeneous-topology kernel
-    path (``cfg.batch_uniform_topology=False``): each body's active collider
-    rows, so the kernel's collider->body reduction can differ per world.
-
-    Returns ``(bcol [W, Kc, N] i32, bmask [W, Kc, N] f32,
-    owner_overflow i32)`` with ``Kc = cfg.max_colliders_per_body``:
-    ``bcol[w, k, n]`` is the k-th collider owned by body ``n`` in world
-    ``w`` (masked by ``bmask``). ``owner_overflow > 0`` is a HARD counter —
-    some body owns more colliders than Kc, and the extras' corrections
-    would be silently dropped; raise ``cfg.max_colliders_per_body``.
-
-    Topology is constant across a rollout (the same invariant
-    :func:`frame2_elig` hoists on), so rollouts compute this once."""
-    from .state import COL_ACTIVE
-
-    kc = cfg.max_colliders_per_body
-    cb = worlds.colliders.body_idx  # [W, M]
-    active = (worlds.colliders.flags & COL_ACTIVE) != 0
-    W, M = cb.shape
-    N = worlds.bodies.n
-    # inactive colliders sort past every body id and never enter a table
-    key = jnp.where(active, cb, N).astype(jnp.int32)
-    order = jnp.argsort(key, axis=-1, stable=True)  # [W, M]
-    skey = jnp.take_along_axis(key, order, axis=-1)
-    ids = jnp.arange(N, dtype=jnp.int32)
-    start = jax.vmap(lambda s: jnp.searchsorted(s, ids))(skey)  # [W, N]
-    end = jax.vmap(lambda s: jnp.searchsorted(s, ids, side="right"))(skey)
-    cnt = end - start
-    pos = start[:, None, :] + jnp.arange(kc, dtype=jnp.int32)[None, :, None]
-    bcol = jnp.take_along_axis(
-        order, jnp.clip(pos, 0, M - 1).reshape(W, -1), axis=-1
-    ).reshape(W, kc, N).astype(jnp.int32)
-    bmask = (jnp.arange(kc)[None, :, None] < cnt[:, None, :]).astype(
-        jnp.float32)
-    owner_overflow = jnp.sum(jnp.maximum(cnt - kc, 0))
-    return bcol, bmask, owner_overflow
-
-
-def frame2_tables(worlds: World, cfg: SolverConfig, frames: int = 1,
-                  interpret: bool = False, return_budget: bool = False,
-                  elig=None):
-    """Slot-table broadphase for a world batch. With ``frames > 1`` the
-    swept AABBs are inflated to stay a valid candidate superset for that
-    many frames (per-body SPEED sweep over ``frames * dt`` plus the speed
-    gravity can add over the window, applied on both axes so impulse-rotated
-    velocity stays covered), AND further inflated per collider to the max
-    budget over its phase-1 candidate partners (partner-aware two-phase
-    build, see build_slot_tables) so momentum exchange inside the window
-    stays in-table. Rollouts amortize this kernel across frames (FUTURE.md
-    broadphase-reuse lever). Returns (partner, slot_act, count,
-    count_touch, count_close); with ``return_budget=True``,
-    ``(tables, budget [W, M])``
-    where budget is the positional inflation each collider actually got
-    (what the rollout's staleness guard must check displacement against)."""
-    body, col = _frame2_arrays(worlds, cfg)
-    vx, vy = body["velx"], body["vely"]
-    if frames > 1:
-        # symmetric positional budget: one operand, reused for both axes
-        # (build_slot_tables rejects an explicit vely in partner_aware mode)
-        vx, vy = _sweep_bounds(worlds, cfg, frames), None
-    from .pallas.slots import build_slot_tables
-
-    *tables, budget = build_slot_tables(
-        body["posx"], body["posy"], body["ang"], vx, vy,
-        body["responds"], body["moves"],
-        col["cbody"], col["vlx"], col["vly"], col["radius"],
-        col["layer"], col["lmask"], col["active"], col["sensor"],
-        elig,
-        C=cfg.slot_capacity, margin=cfg.contact_margin,
-        dt=cfg.dt * frames, interpret=interpret,
-        partner_aware=frames > 1,
-    )
-    tables = tuple(tables)
-    return (tables, budget) if return_budget else tables
-
-
-def _batch_solve_cap(cfg: SolverConfig) -> int:
-    """Solve-slot width for the batched kernel (config.batch_solve_capacity,
-    lane-packed so any positive width works): 0 = compaction off."""
-    if (cfg.batch_solve_capacity <= 0
-            or cfg.batch_solve_capacity >= cfg.slot_capacity):
-        return 0  # full width: the kernel runs uncompacted
-    return cfg.batch_solve_capacity
-
-
-def frame2_step(worlds: World, cfg: SolverConfig, interpret: bool = False,
-                tables=None, owner=None):
-    """One batched frame through the slot kernels. Returns
-    ``(new_worlds, touched [W, C, M], partner [W, C, M], counts, aux)`` —
-    ``counts = (count, count_touch, count_close)``
-    [W, M] each: ``max(count_touch) - C`` must be <= 0 for trustworthy
-    physics (touching contacts dropped); ``max(count_close) - C > 0`` /
-    ``max(count) - C > 0`` only drop margin-imminent / swept-speculative
-    candidates (bounded staleness, see build_slot_tables).
-    ``aux`` is a dict of already-reduced HARD scalar counters:
-    ``joint_overflow`` (joint-slot analogue of count_touch) and
-    ``owner_overflow`` (heterogeneous path only: a body owned more
-    colliders than ``cfg.max_colliders_per_body``). Pass ``tables`` (from
-    :func:`frame2_tables`) to reuse a broadphase across frames, and
-    ``owner`` (from :func:`collider_owner_tables`) to reuse the hoisted
-    owner tables on the ``batch_uniform_topology=False`` path."""
-    import dataclasses
-
-    from .pallas.frame2 import run_frame2
-    from .pallas.slots import build_joint_slots
-
-    body, col = _frame2_arrays(worlds, cfg)
-    C = cfg.slot_capacity
-    if tables is None:
-        tables = frame2_tables(worlds, cfg, interpret=interpret)
-    partner, slot_act, count, count_touch, count_close = tables
-
-    owner_overflow = jnp.int32(0)
-    owner_pass = None
-    if not cfg.batch_uniform_topology:
-        if owner is None:
-            owner = collider_owner_tables(worlds, cfg)
-        bcol, bmask, owner_overflow = owner
-        owner_pass = (bcol, bmask)
-
-    joints = None
-    JC = 0
-    joint_overflow = jnp.int32(0)
-    if worlds.joints.j > 0:
-        from .state import JOINT_OFF
-
-        j = worlds.joints
-        JC = cfg.joint_slot_capacity
-        Jp = -(-j.j // 128) * 128  # pad the joint axis to a lane multiple
-
-        def padj(x, fill=0):
-            return jnp.pad(x, ((0, 0), (0, Jp - j.j)), constant_values=fill)
-
-        jactive = padj((j.jtype != JOINT_OFF).astype(jnp.float32))
-        jslot, jside, jact, jcount = build_joint_slots(
-            padj(j.body_a), padj(j.body_b), jactive,
-            n_bodies=worlds.bodies.n, JC=JC, interpret=interpret,
-        )
-        joint_overflow = jnp.sum(jnp.maximum(jcount - JC, 0))
-        joints = dict(
-            jcolor=padj(j.color, fill=2**20),
-            jtype=padj(j.jtype), jba=padj(j.body_a), jbb=padj(j.body_b),
-            jaax=padj(j.anchor_a[..., 0]), jaay=padj(j.anchor_a[..., 1]),
-            jabx=padj(j.anchor_b[..., 0]), jaby=padj(j.anchor_b[..., 1]),
-            jrest=padj(j.rest), jlo=padj(j.lo), jhi=padj(j.hi),
-            jcomp=padj(j.compliance), jdamp=padj(j.damping),
-            jms=padj(j.motor_speed),
-            jmm=padj(jnp.nan_to_num(j.motor_max, posinf=3.4e38)),
-            jslot=jslot, jside=jside, jact=jact,
-        )
-
-    gravity = jnp.broadcast_to(worlds.gravity, (body["posx"].shape[0], 2))
-    Cs = _batch_solve_cap(cfg)
-    outs = run_frame2(
-        body["posx"], body["posy"], body["ang"],
-        body["velx"], body["vely"], body["angvel"],
-        body["invm"], body["invi"], body["dyn"], body["kin"],
-        col["cbody"], col["vlx"], col["vly"], col["nverts"], col["radius"],
-        col["fric"], col["rest"], col["sensor"],
-        partner, slot_act, joints, gravity, body["bullet"], owner_pass,
-        C=C, JC=JC, substeps=cfg.substeps, iterations=cfg.iterations,
-        h=cfg.dt / cfg.substeps, dt=cfg.dt, margin=cfg.contact_margin,
-        compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
-        max_dpos=cfg.max_dpos_eff, rest_threshold=cfg.restitution_threshold,
-        lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-        joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
-        max_dpos_joint=cfg.max_dpos, ccd=cfg.ccd, ccd_slop=cfg.ccd_slop,
-        interpret=interpret, Cs=Cs,
-    )
-    posx, posy, ang, velx, vely, angvel, touched = outs[:7]
-    solve_overflow = solve_dropped = jnp.int32(0)
-    if Cs:
-        # compaction: `partner` downstream must be the table `touched`
-        # actually indexes (wake rows, event keys); the nact counts give
-        # the HARD imminent-drop / soft speculative-drop counters
-        partner, nact = outs[7], outs[8]
-        solve_overflow = jnp.sum(jnp.maximum(
-            nact[:, 0, :] - Cs, 0.0)).astype(jnp.int32)
-        solve_dropped = jnp.sum(jnp.maximum(
-            nact[:, 1, :] - Cs, 0.0)).astype(jnp.int32) - solve_overflow
-
-    b = worlds.bodies
-    pos = jnp.stack([posx, posy], axis=-1)
-    vel = jnp.stack([velx, vely], axis=-1)
-    sleep_count = b.sleep_count
-    if cfg.sleep_velocity > 0.0:
-        # unified sleep semantics (VERDICT r2 item 7): _frame2_arrays froze
-        # sleepers exactly for this frame; here the counter updates and the
-        # wake-on-fast-contact rule runs on the kernel's touch tables (a
-        # touched slot whose partner body is fast wakes the row's owner;
-        # dyn-dyn pairs appear in both rows, so waking is symmetric)
-        spd2 = jnp.sum(vel**2, axis=-1) + angvel**2
-        slow = spd2 < cfg.sleep_velocity**2
-        if worlds.joints.j > 0:
-            # island-style joint coupling, unified with the other tiers
-            # (step._joint_slow_closure): dumbbells sleep as pairs
-            from types import SimpleNamespace
-
-            from .step import _joint_slow_closure
-
-            j = worlds.joints
-            slow = jax.vmap(lambda s, a, bb, act: _joint_slow_closure(
-                s, SimpleNamespace(body_a=a, body_b=bb, active=act)))(
-                    slow, j.body_a, j.body_b, j.active)
-        cb = worlds.colliders.body_idx  # [W, M]
-        Wn, N = spd2.shape
-        fast = (b.inv_mass > 0) & (
-            spd2 >= (cfg.sleep_velocity * cfg.wake_velocity_factor) ** 2)
-        pb = jnp.take_along_axis(
-            cb, partner.reshape(Wn, -1), axis=1).reshape(partner.shape)
-        fast_p = jnp.take_along_axis(
-            fast, pb.reshape(Wn, -1), axis=1).reshape(pb.shape)
-        wake_rows = jnp.any((touched > 0) & fast_p, axis=-2)  # [W, M]
-        wake = jax.vmap(
-            lambda cbw, wr: jnp.zeros((N,), bool).at[cbw].max(wr)
-        )(cb, wake_rows)
-        if worlds.joints.j > 0:
-            from types import SimpleNamespace
-
-            from .step import _joint_wake_closure
-
-            j = worlds.joints
-            wake = jax.vmap(lambda w, a, bb, act: _joint_wake_closure(
-                w, SimpleNamespace(body_a=a, body_b=bb, active=act)))(
-                    wake, j.body_a, j.body_b, j.active)
-        sleep_count = jnp.where(wake, 0, sleep_count)
-        asleep = (sleep_count >= cfg.sleep_frames) & (b.inv_mass > 0)
-        vel = jnp.where(asleep[..., None], 0.0, vel)
-        angvel = jnp.where(asleep, 0.0, angvel)
-
-    new_bodies = dataclasses.replace(
-        b, pos=pos, angle=ang, vel=vel, ang_vel=angvel,
-        prev_pos=b.pos, prev_angle=b.angle, sleep_count=sleep_count,
-    )
-    new_worlds = dataclasses.replace(
-        worlds, bodies=new_bodies, step_count=worlds.step_count + 1
-    )
-    aux = dict(joint_overflow=joint_overflow, owner_overflow=owner_overflow,
-               solve_overflow=solve_overflow, solve_dropped=solve_dropped)
-    return new_worlds, touched, partner, (count, count_touch, count_close), aux
-
-
-def batched_step_events(worlds: World, cfg: SolverConfig,
-                        interpret: bool = False, tables=None):
-    """Kernel-path batched step that ALSO returns the frame's canonical
-    contact-pair keys (VERDICT r2 item 8: events at kernel speed, no
-    fallback to the XLA path). Returns ``(new_worlds, keys [W, C, M],
-    diag)``; diff consecutive frames' keys with
-    :func:`starframe_tpu.events.key_event_masks`. Requires a kernel-eligible
-    batch (``frame2_shapes_ok``)."""
-    assert frame2_shapes_ok(worlds, cfg), (
-        "batched_step_events runs the slot-kernel path; this batch is not "
-        "eligible (see frame2_shapes_ok) — use step(with_contacts=True)")
-    from .events import touching_keys_from_slots
-
-    w2, touched, partner, (count, count_touch, count_close), aux = \
-        frame2_step(worlds, cfg, interpret=interpret, tables=tables)
-    keys = touching_keys_from_slots(touched, partner, worlds.colliders.m)
-    diag = dict(
-        slot_overflow=jnp.maximum(jnp.max(count_touch) - cfg.slot_capacity, 0),
-        margin_dropped=jnp.maximum(
-            jnp.max(count_close) - cfg.slot_capacity, 0),
-        spec_dropped=jnp.maximum(jnp.max(count) - cfg.slot_capacity, 0),
-        **aux,
-    )
-    return w2, keys, diag
+def batched_step_events(worlds: World, cfg: SolverConfig, max_pairs: int):
+    """Batched step that also returns the frame's canonical contact-pair
+    keys. Returns ``(new_worlds, keys [W, P], diag)``; diff consecutive
+    frames' keys with :func:`starframe_tpu.events.key_event_masks` (the
+    device-side analogue of :func:`~starframe_tpu.events.diff_contacts`)."""
+    w2, contacts, d = _vmapped_step(worlds, cfg, max_pairs)
+    return w2, _batch_keys(worlds, contacts), _overflow_diag(d)
 
 
 def batched_step(worlds: World, cfg: SolverConfig, max_pairs: int,
-                 with_diag: bool = False, interpret: bool = False):
-    """Frame step over the leading world axis (un-jitted).
+                 with_diag: bool = False):
+    """Frame step over the leading world axis (un-jitted): ``vmap(step)``.
 
-    Contact-only world batches on TPU take the slot-table Pallas kernels
-    (pallas/slots.py + pallas/frame2.py); everything else is vmap(step).
-
-    With ``with_diag=True`` returns ``(worlds, diag)`` where ``diag`` is the
-    same overflow-counter dict the rollout carries (SURVEY.md §4.6: silent
-    truncation is the #1 hazard of the fixed-capacity design, so the
-    frame-by-frame API must surface it too): ``slot_overflow`` (truncated
-    LIVE contacts — must be 0 for trustworthy physics), ``spec_dropped``
-    (truncated SPECULATIVE swept-margin candidates — bounded staleness), and
-    ``joint_overflow``. On the vmap path ``slot_overflow`` maps to the pair-
-    buffer overflow and ``cell_overflow`` is additionally reported.
-
-    ``interpret=True`` runs the slot kernels in Pallas interpret mode on any
-    backend (how the CPU tests exercise the kernel path's counters)."""
-    kernel_path = (frame2_shapes_ok(worlds, cfg) if interpret
-                   else use_pallas_frame2(worlds, cfg))
-    if kernel_path:
-        w2, _, _, (count, count_touch, count_close), aux = frame2_step(
-            worlds, cfg, interpret=interpret)
-        if not with_diag:
-            return w2
-        C = cfg.slot_capacity
-        diag = dict(
-            slot_overflow=jnp.maximum(jnp.max(count_touch) - C, 0),
-            margin_dropped=jnp.maximum(jnp.max(count_close) - C, 0),
-            spec_dropped=jnp.maximum(jnp.max(count) - C, 0),
-            **aux,
-        )
-        return w2, diag
-    w2, _, d = jax.vmap(lambda w: step(w, cfg, max_pairs))(worlds)
+    With ``with_diag=True`` returns ``(worlds, diag)`` where ``diag`` holds
+    the same hard counters :func:`batched_rollout` carries (SURVEY.md §4.6:
+    silent truncation is the #1 hazard of the fixed-capacity design, so the
+    frame-by-frame API surfaces it too): ``pair_overflow`` and
+    ``cell_overflow``, each the max over worlds."""
+    w2, _, d = _vmapped_step(worlds, cfg, max_pairs)
     if not with_diag:
         return w2
-    diag = dict(
-        slot_overflow=jnp.max(d.pair_overflow),
-        margin_dropped=jnp.int32(0),
-        spec_dropped=jnp.int32(0),
-        joint_overflow=jnp.int32(0),
-        owner_overflow=jnp.int32(0),
-        cell_overflow=jnp.max(d.cell_overflow),
-    )
-    return w2, diag
+    return w2, _overflow_diag(d)
 
 
 def make_batched_step(cfg: SolverConfig, max_pairs: int, donate: bool = True,
@@ -499,224 +96,37 @@ def make_batched_step(cfg: SolverConfig, max_pairs: int, donate: bool = True,
     return jax.jit(fn, donate_argnums=(0,) if donate else ())
 
 
-
-
 def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
-                    n_frames: int, record=None, interpret: bool = False,
-                    with_keys: bool = False):
+                    n_frames: int, record=None, with_keys: bool = False):
     """On-device N-frame rollout of a world batch via ``lax.scan`` — the
     RL-workload shape (BASELINE.json:11): one host round trip for the whole
     trajectory. ``record(worlds) -> pytree`` picks what to stack per frame
-    (default: poses). With ``with_keys=True`` (slot-kernel path only) each
-    trajectory entry becomes ``(record(w), keys [W, C, M] i32)`` — the
-    frame's canonical contact-pair keys straight from the kernel's touch
-    tables (diff consecutive frames with
-    :func:`starframe_tpu.events.key_event_masks`).
+    (default: poses). With ``with_keys=True`` each trajectory entry becomes
+    ``(record(w), keys [W, P] i32)`` — the frame's canonical touching-pair
+    keys (see :func:`batched_step_events`).
 
-    Returns ``(final, traj, diag)``; ``diag`` carries the rollout's
-    correctness counters (silent truncation is the #1 hazard of the
-    fixed-capacity design, SURVEY.md §4.6):
-
-    - ``slot_overflow``: max over frames of ``max(count_touch) - C``
-      (<= 0 means no collider row ever truncated a TOUCHING contact —
-      the hard physics-corruption case: a live contact went unsolved);
-    - ``margin_dropped`` / ``spec_dropped``: max over frames of
-      ``max(count_close) - C`` / ``max(count) - C`` — rows that truncated
-      only margin-imminent / swept-speculative candidates. Bounded
-      staleness, not corruption: a dropped not-yet-touching pair re-enters
-      at the next rebuild (<= K-1 frames), so the worst case is a contact
-      forming up to K-1 frames late at the pair's closing speed, resolved
-      by the solver's normal depenetration (the same contract Box2D-style
-      speculative margins provide). Note the asymmetric case: the two rows
-      of a dynamic-dynamic pair rank independently, so one row can drop the
-      pair while the other keeps it — the contact then solves ONE-SIDED
-      (half the correction) for those <= K-1 frames; once touching it is a
-      touch candidate on both rows at the next rebuild and touch-first
-      ranking restores the symmetric solve (tests/test_staleness.py pins
-      this bound);
-    - ``joint_overflow``: joint-slot analogue of the hard counter;
-    - ``forced_rebuilds``: broadphase rebuilds forced by the staleness
-      guard below.
-
-    On the slot-kernel path with ``cfg.frames_per_broadphase = K > 1``, the
-    slot tables are rebuilt every K-th frame with K-frame-inflated sweeps
-    (a candidate SUPERSET, so solved contacts — which require actual
-    proximity — are unchanged; only slot pressure rises) and carried through
-    the scan — amortizing the broadphase kernel K-fold. The superset claim
-    assumes every body stays inside the swept AABB its tables were built
-    with; impulse exchange (a projectile hitting a resting cluster) CAN
-    violate it, so a per-frame POSITIONAL guard checks each body's
-    displacement since build (plus the coming frame's motion) against the
-    sweep budget and forces an early rebuild on escape (counted in
-    ``forced_rebuilds``). The positional form is the exact invariant: a
-    settling pile exchanging small impulses never trips it (bodies barely
-    move), while a genuinely escaping body always does.
+    Returns ``(final, traj, diag)``; ``diag`` holds the max over frames of
+    the hard counters ``pair_overflow`` and ``cell_overflow`` (both must be
+    0; silent truncation is the #1 hazard of the fixed-capacity design,
+    SURVEY.md §4.6).
     """
     if record is None:
         record = lambda w: (w.bodies.pos, w.bodies.angle)
 
-    def record_k(w2, touched, partner):
-        # with_keys: per-frame canonical contact-pair keys at kernel speed
-        # (VERDICT r2 item 8) alongside the caller's record
-        if not with_keys:
-            return record(w2)
-        from .events import touching_keys_from_slots
-
-        return (record(w2),
-                touching_keys_from_slots(touched, partner,
-                                         worlds.colliders.m))
-
-    kernel_path = (frame2_shapes_ok(worlds, cfg) if interpret
-                   else use_pallas_frame2(worlds, cfg))
-    if not kernel_path and with_keys:
-        raise ValueError(
-            "with_keys needs the slot-kernel rollout path; this batch/config "
-            "is not eligible (see frame2_shapes_ok) — use "
-            "step(with_contacts=True) per frame instead")
-    if kernel_path and cfg.frames_per_broadphase <= 1:
-        # K=1: fresh tables every frame, built INLINE with no lax.cond and no
-        # staleness guard (none is needed — there is nothing to go stale).
-        # This is deliberately not the K>1 path with K=1: a conditional whose
-        # branch is taken every frame costs ~8 ms/frame of branch disruption
-        # on this workload (measured r3; the scalar core's run-ahead dies on
-        # a vector-reduction predicate), while the straight-line build is
-        # ~2 ms and fuses into the scan body. Contact-rich scenes whose
-        # impulse exchange trips the K>1 positional guard nearly every frame
-        # should prefer this path: same freshness, none of the branch tax.
-        C = cfg.slot_capacity
-        # INVARIANT: elig is hoisted out of the scan on the premise that
-        # collider active/layer/sensor flags and body responds/moves flags
-        # never change INSIDE a rollout (nothing in frame2_step mutates
-        # them; spawn/despawn/flag edits happen between rollouts on host).
-        # Any future in-scan flag mutation must rebuild elig in-scan too.
-        elig = frame2_elig(worlds, cfg, interpret=interpret)
-        # owner tables hoist on the same topology-constant invariant
-        owner = (collider_owner_tables(worlds, cfg)
-                 if not cfg.batch_uniform_topology else None)
-
-        def body(carry, _):
-            w, ovf, marg, spec, jovf, sovf, sdrp = carry
-            tables = frame2_tables(w, cfg, frames=1, interpret=interpret,
-                                   elig=elig)
-            w2, touched, partner, (count, count_touch, count_close), aux = \
-                frame2_step(w, cfg, interpret=interpret, tables=tables,
-                            owner=owner)
-            ovf = jnp.maximum(ovf, jnp.max(count_touch) - C)
-            marg = jnp.maximum(marg, jnp.max(count_close) - C)
-            spec = jnp.maximum(spec, jnp.max(count) - C)
-            jovf = jnp.maximum(jovf, aux["joint_overflow"])
-            sovf = jnp.maximum(sovf, aux["solve_overflow"])
-            sdrp = jnp.maximum(sdrp, aux["solve_dropped"])
-            return (w2, ovf, marg, spec, jovf, sovf,
-                    sdrp), record_k(w2, touched, partner)
-
-        neg = jnp.int32(-(2**31))
-        zero = jnp.int32(0)
-        (final, ovf, marg, spec, jovf, sovf, sdrp), traj = jax.lax.scan(
-            body, (worlds, neg, neg, neg, zero, zero, zero), None,
-            length=n_frames)
-        diag = dict(slot_overflow=jnp.maximum(ovf, 0),
-                    margin_dropped=jnp.maximum(marg, 0),
-                    spec_dropped=jnp.maximum(spec, 0),
-                    joint_overflow=jovf, forced_rebuilds=jnp.int32(0),
-                    solve_overflow=sovf, solve_dropped=sdrp,
-                    owner_overflow=(owner[2] if owner is not None
-                                    else jnp.int32(0)))
-        return final, traj, diag
-
-    if kernel_path:
-        K = max(cfg.frames_per_broadphase, 1)
-        C = cfg.slot_capacity
-        # hoisted on the same flags-constant-inside-a-rollout invariant as
-        # the K=1 path above
-        elig = frame2_elig(worlds, cfg, interpret=interpret)
-        owner = (collider_owner_tables(worlds, cfg)
-                 if not cfg.batch_uniform_topology else None)
-
-        def build(w):
-            # position budget per body: the swept-AABB inflation the tables
-            # were ACTUALLY built with (partner-aware, reported per collider
-            # by the builder), reduced to per body as the min over the
-            # body's active colliders — a body staying inside that budget
-            # keeps every one of its colliders inside its build-time box
-            tables, budget_col = frame2_tables(
-                w, cfg, frames=K, interpret=interpret, return_budget=True,
-                elig=elig)
-            from .state import COL_ACTIVE
-
-            act = (w.colliders.flags & COL_ACTIVE) != 0
-            big = jnp.float32(3.0e38)
-            bc = jnp.where(act, budget_col, big)
-            n = w.bodies.pos.shape[-2]
-            budget = jax.vmap(
-                lambda cb, bv: jnp.full((n,), big, jnp.float32).at[cb].min(bv)
-            )(w.colliders.body_idx, bc)
-            return tables, w.bodies.pos, budget
-
-        def body(carry, _):
-            (w, tables, pos0, sweep, age, ovf, marg, spec, jovf, sovf, sdrp,
-             rebuilds) = carry
-            if K > 1:
-                b = w.bodies
-                # positional staleness guard: body must stay inside its
-                # build-time swept AABB through the COMING frame
-                disp = jnp.max(jnp.abs(b.pos - pos0), axis=-1)
-                motion = (jnp.sqrt(jnp.sum(b.vel**2, axis=-1))
-                          + _gmag(w) * cfg.dt) * cfg.dt
-                esc = disp + motion > sweep + 1e-5
-                viol = jnp.any(esc & (b.inv_mass > 0))
-            else:
-                viol = jnp.bool_(False)
-            do = (age == 0) | viol
-            tables, pos0, sweep = jax.lax.cond(
-                do, lambda op: build(op[0]),
-                lambda op: (op[1], op[2], op[3]),
-                (w, tables, pos0, sweep))
-            w2, touched, partner, (count, count_touch, count_close), aux \
-                = frame2_step(w, cfg, interpret=interpret, tables=tables,
-                              owner=owner)
-            ovf = jnp.maximum(ovf, jnp.max(count_touch) - C)
-            marg = jnp.maximum(marg, jnp.max(count_close) - C)
-            spec = jnp.maximum(spec, jnp.max(count) - C)
-            jovf = jnp.maximum(jovf, aux["joint_overflow"])
-            sovf = jnp.maximum(sovf, aux["solve_overflow"])
-            sdrp = jnp.maximum(sdrp, aux["solve_dropped"])
-            rebuilds = rebuilds + (viol & (age != 0)).astype(jnp.int32)
-            age = jnp.where(do, 1, age + 1) % K
-            return (w2, tables, pos0, sweep, age, ovf, marg, spec, jovf,
-                    sovf, sdrp, rebuilds), record_k(w2, touched, partner)
-
-        tables0, pos00, sweep0 = build(worlds)
-        zero = jnp.int32(0)
-        neg = jnp.int32(-(2**31))
-        carry0 = (worlds, tables0, pos00, sweep0, jnp.int32(1 % K),
-                  neg, neg, neg, zero, zero, zero, zero)
-        (final, _, _, _, _, ovf, marg, spec, jovf, sovf, sdrp,
-         rebuilds), traj = \
-            jax.lax.scan(body, carry0, None, length=n_frames)
-        diag = dict(slot_overflow=jnp.maximum(ovf, 0),
-                    margin_dropped=jnp.maximum(marg, 0),
-                    spec_dropped=jnp.maximum(spec, 0),
-                    joint_overflow=jovf, forced_rebuilds=rebuilds,
-                    solve_overflow=sovf, solve_dropped=sdrp,
-                    owner_overflow=(owner[2] if owner is not None
-                                    else jnp.int32(0)))
-        return final, traj, diag
-
     def body(carry, _):
         w, povf, covf = carry
-        w2, _, d = jax.vmap(lambda w1: step(w1, cfg, max_pairs))(w)
+        w2, contacts, d = _vmapped_step(w, cfg, max_pairs)
         povf = jnp.maximum(povf, jnp.max(d.pair_overflow))
         covf = jnp.maximum(covf, jnp.max(d.cell_overflow))
-        return (w2, povf, covf), record(w2)
+        rec = record(w2)
+        if with_keys:
+            rec = (rec, _batch_keys(w, contacts))
+        return (w2, povf, covf), rec
 
     zero = jnp.int32(0)
     (final, povf, covf), traj = jax.lax.scan(
         body, (worlds, zero, zero), None, length=n_frames)
-    diag = dict(slot_overflow=povf, margin_dropped=zero, spec_dropped=zero,
-                joint_overflow=zero, forced_rebuilds=zero, cell_overflow=covf,
-                solve_overflow=zero, solve_dropped=zero, owner_overflow=zero)
-    return final, traj, diag
+    return final, traj, dict(pair_overflow=povf, cell_overflow=covf)
 
 
 def make_batched_rollout(cfg: SolverConfig, max_pairs: int, n_frames: int,
@@ -740,109 +150,39 @@ def shard_world(batched: World, mesh: Mesh, axis: str = "worlds") -> World:
     return jax.device_put(batched, world_sharding(mesh, batched, axis))
 
 
-def _mesh_on_tpu(mesh: Mesh) -> bool:
-    dev = next(iter(mesh.devices.flat))
-    return dev.platform == "tpu" or "TPU" in getattr(dev, "device_kind", "")
-
-
-def make_shardmap_kernel_step(
-    cfg: SolverConfig,
-    mesh: Mesh,
-    axis: str = "worlds",
-    interpret: bool = False,
-    donate: bool = True,
-):
-    """The multi-chip Pallas path: ``shard_map`` the whole-frame slot kernels
-    over the world axis, so EACH device runs ``pallas_call`` on its local
-    world shard — no GSPMD partitioning of the kernel is ever needed, and no
-    collective appears on the hot path (worlds are independent;
-    BASELINE.json:11's "per-chip number x linear scaling" argument).
-
-    ``interpret=True`` runs the kernels in Pallas interpret mode, which is
-    how the CPU-mesh tests and the driver's ``dryrun_multichip`` validate
-    this exact code path without 8 real chips.
-    """
-    spec = P(axis)
-
-    def local_step(worlds: World) -> World:
-        return frame2_step(worlds, cfg, interpret=interpret)[0]
-
-    fn = _shard_map(local_step, mesh, in_specs=spec, out_specs=spec)
-    return jax.jit(fn, donate_argnums=(0,) if donate else ())
-
-
 def make_sharded_step(
     cfg: SolverConfig,
     max_pairs: int,
     mesh: Optional[Mesh] = None,
     axis: str = "worlds",
     donate: bool = True,
-    example_worlds: Optional[World] = None,
+    with_diag: bool = False,
 ):
-    """Jitted step over a world batch sharded across ``mesh`` on ICI.
+    """Jitted step over a world batch sharded across ``mesh``.
 
-    Worlds are embarrassingly parallel (BASELINE.json:11), so no cross-chip
-    communication happens inside the step; place the input with
-    :func:`shard_world` and the output sharding is preserved.
-
-    On a TPU mesh, batches eligible for the slot kernels (pass
-    ``example_worlds`` so eligibility is known at build time) take the
-    ``shard_map``-wrapped Pallas path (:func:`make_shardmap_kernel_step`) —
-    each chip runs the kernel on its local shard. Everything else runs the
-    XLA path under plain jit + sharding constraints.
+    Worlds are embarrassingly parallel (BASELINE.json:11): ``shard_map``
+    runs :func:`batched_step` on each device's local shard, so the step has
+    no cross-device communication. Place the input with :func:`shard_world`;
+    the output keeps the same sharding. The world count must divide evenly
+    over the mesh. With ``with_diag=True`` the step also returns the hard
+    counters of :func:`batched_step`, one entry per shard (leading axis =
+    mesh size; reduce with ``max`` on the host).
     """
     mesh = make_mesh() if mesh is None else mesh
-    on_tpu = _mesh_on_tpu(mesh)
-
-    # the whole-frame Pallas kernel only lowers on TPU; a CPU mesh (e.g. the
-    # 8-virtual-device test mesh) must take the XLA path
-    if not on_tpu:
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, use_pallas=False)
-    elif example_worlds is not None and use_pallas_frame2(
-            example_worlds, cfg, n_shards=mesh.devices.size):
-        return make_shardmap_kernel_step(cfg, mesh, axis, donate=donate)
-
-    def fn(worlds: World) -> World:
-        return batched_step(worlds, cfg, max_pairs)
-
-    # constrain output sharding; input sharding comes from operand placement
-    def sharded(worlds: World) -> World:
-        out = fn(worlds)
-        return jax.lax.with_sharding_constraint(out, world_sharding(mesh, out, axis))
-
-    return jax.jit(sharded, donate_argnums=(0,) if donate else ())
-
-
-def make_shardmap_kernel_rollout(
-    cfg: SolverConfig,
-    mesh: Mesh,
-    n_frames: int,
-    axis: str = "worlds",
-    interpret: bool = False,
-    record=None,
-):
-    """Multi-chip rollout: ``shard_map`` around :func:`batched_rollout`'s
-    kernel path — each device scans its own world shard for ``n_frames``
-    (one dispatch for the whole trajectory on every chip, zero collectives).
-    Overflow counters come back per-shard (leading axis = number of devices);
-    hosts reduce with ``max``. A custom ``record`` must keep the world axis
-    FIRST in each leaf it returns (trajectory leaves are stacked to
-    ``[n_frames, worlds_local, ...]`` and sharded on axis 1)."""
     spec = P(axis)
 
-    def local_roll(worlds: World):
-        final, traj, diag = batched_rollout(
-            worlds, cfg, max_pairs=0, n_frames=n_frames, record=record,
-            interpret=interpret)
-        # per-shard counters: keep a leading axis so out_specs can shard it
-        diag = {k: v[None] for k, v in diag.items()}
-        return final, traj, diag
+    def local_step(worlds: World):
+        if not with_diag:
+            return batched_step(worlds, cfg, max_pairs)
+        w2, diag = batched_step(worlds, cfg, max_pairs, with_diag=True)
+        return w2, {k: v[None] for k, v in diag.items()}
 
-    fn = _shard_map(local_roll, mesh, in_specs=spec,
-                    out_specs=(spec, P(None, axis), spec))
-    return jax.jit(fn)
+    # check_vma=False: the body is purely per-shard (no collectives), and
+    # varying-axes inference rejects the step's replicated loop-carry inits
+    fn = jax.shard_map(local_step, mesh=mesh, in_specs=spec,
+                       out_specs=(spec, spec) if with_diag else spec,
+                       check_vma=False)
+    return jax.jit(fn, donate_argnums=(0,) if donate else ())
 
 
 def global_metrics(worlds: World) -> dict:

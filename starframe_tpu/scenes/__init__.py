@@ -1,5 +1,5 @@
 """Programmatic scene builders: the 5 driver-normative bench configs
-(BASELINE.json:7-11) plus helpers. The TPU-native stand-in for starframe's
+(BASELINE.json:7-11) plus helpers. The array-program stand-in for starframe's
 ``examples/sandbox`` demo scenes (SURVEY.md §2 row 19) — the de-facto
 integration suite of the reference.
 """

@@ -12,11 +12,11 @@ from ..step import make_step, make_rollout
 def tighten_joint_colors(world: World, cfg: SolverConfig) -> SolverConfig:
     """Clamp ``cfg.max_joint_colors`` to the scene's ACTUAL chromatic count
     (known host-side at build time from the greedy coloring). The colored-GS
-    solvers run one masked pass per color bound — a rope chain needs 2
+    solver runs one masked pass per color bound — a rope chain needs 2
     colors, so the default bound of 8 would burn 6 empty sequential passes
-    per substep in the frame kernel. Joints spawned at runtime that recolor
-    beyond the static bound still solve correctly: the last pass sweeps all
-    remaining colors count-normalized (solver.py / pallas/frame2.py)."""
+    per substep. Joints spawned at runtime that recolor beyond the static
+    bound still solve correctly: the last pass sweeps all remaining colors
+    count-normalized (solver.py)."""
     import numpy as np
 
     from ..state import JOINT_OFF

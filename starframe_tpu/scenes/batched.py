@@ -43,8 +43,7 @@ def _single_world(n_bodies: int, substeps: int):
             b.add_collider(body, Shape.box(0.45, 0.45), friction=0.5)
 
     # measured: this scene peaks at ~2.6 candidate pairs/body while settling;
-    # 4x/body is ~1.5x headroom and keeps the one-hot in the Pallas VMEM
-    # budget for 256-body worlds (overflow counters guard the margin)
+    # 4x/body is ~1.5x headroom (overflow counters guard the margin)
     cap = Capacity(
         max_bodies=n_bodies,
         max_colliders=n_bodies,
@@ -53,35 +52,16 @@ def _single_world(n_bodies: int, substeps: int):
         max_verts=4,
     )
     world, cap = b.build(cap)
-    # rollouts amortize the slot-table broadphase over 4 frames (sweeps are
-    # inflated to stay a candidate superset — parity-tested vs K=1)
-    cfg = SolverConfig(dt=1 / 60, substeps=substeps, frames_per_broadphase=4)
+    cfg = SolverConfig(dt=1 / 60, substeps=substeps)
     return world, cap, cfg
 
 
-def batchify(
-    scene: Scene,
-    n_worlds: int,
-    seed: int = 0,
-    use_kernel: bool = True,
-    noise: float = 0.05,
-) -> Scene:
-    """Turn any single-world scene into an ``n_worlds`` batch eligible for
-    the whole-frame slot kernel: pads body/collider capacities to the
-    128-lane multiples the kernel's gathers need, replicates the world, and
-    adds per-world deterministic velocity perturbations so worlds diverge.
-
-    The kernel implements both joint tiers (graph-colored Gauss-Seidel —
-    the default — and averaged Jacobi), so jointed scenes keep their
-    configured ``joint_solver``.
-    """
-    from ..state import expand_capacity
-
-    world = scene.world
-    pad_n = (-world.bodies.n) % 128
-    pad_m = (-world.colliders.m) % 128
-    world = expand_capacity(world, extra_bodies=pad_n, extra_colliders=pad_m)
-    batched = replicate_world(world, n_worlds)
+def batchify(scene: Scene, n_worlds: int, seed: int = 0,
+             noise: float = 0.05) -> Scene:
+    """Turn any single-world scene into an ``n_worlds`` batch: replicates
+    the world and adds per-world deterministic velocity perturbations so
+    worlds diverge. Capacities and config are the scene's own."""
+    batched = replicate_world(scene.world, n_worlds)
 
     key = jax.random.PRNGKey(seed)
     dyn = (batched.bodies.inv_mass > 0)[..., None]
@@ -94,15 +74,8 @@ def batchify(
     batched = dataclasses.replace(
         batched, bodies=dataclasses.replace(batched.bodies, vel=vel)
     )
-    cfg = scene.config
-    if not use_kernel:
-        cfg = dataclasses.replace(cfg, use_pallas=False)
-    cap = dataclasses.replace(
-        scene.capacity,
-        max_bodies=world.bodies.n,
-        max_colliders=world.colliders.m,
-    )
-    return Scene(f"batched_{scene.name}", batched, cap, cfg)
+    return Scene(f"batched_{scene.name}", batched, scene.capacity,
+                 scene.config)
 
 
 def batched_worlds(

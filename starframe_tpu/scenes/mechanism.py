@@ -71,10 +71,7 @@ def mechanism(
         max_verts=4,
     )
     world, cap = b.build(cap)
-    # slot_capacity 12: compound bodies own several colliders, so rows
-    # see more candidates than the default 8 (measured overflow of 3 on
-    # the 1024-world batch; counters guard the margin)
-    cfg = SolverConfig(dt=1 / 60, substeps=substeps, slot_capacity=12)
+    cfg = SolverConfig(dt=1 / 60, substeps=substeps)
     cfg = tighten_joint_colors(world, cfg)
     scene = Scene("mechanism", world, cap, cfg)
     scene.wheel = wheel

@@ -11,6 +11,19 @@ from ..state import WorldBuilder
 from .base import Scene
 
 
+def _pile_config(b: WorldBuilder, substeps: int,
+                 sleep_velocity: float = 0.1) -> SolverConfig:
+    """Grid broadphase sized from the scene. While the pile falls, bodies
+    whose swept AABB outgrows 1.5x the mean extent go to the broadphase's
+    dense large set: the 10k pile peaked above the default 64 of them around
+    frame 110 on an H100 (PERF.md, PR 1), so the large set scales with the
+    collider count."""
+    return SolverConfig(dt=1 / 60, substeps=substeps, broadphase="grid",
+                        grid_cell_capacity=b.suggest_grid_cell_capacity(),
+                        max_large=max(64, len(b._colliders) // 32),
+                        sleep_velocity=sleep_velocity, sleep_frames=30)
+
+
 def pile(
     n_bodies: int = 10_000,
     body_half: float = 0.5,
@@ -60,21 +73,10 @@ def pile(
     # capacities + grid fan-out come from the builder's scene-stat estimators
     # (SURVEY.md §7.8.1) — no hand-tuned numbers; overflow counters backstop
     world, cap = b.build()
-    # frames_per_broadphase: tiled rollouts re-sort the tile layout every
-    # K frames (the staleness guard forces earlier re-sorts when needed)
-    # slot_capacity 16: a fully settled dense pile peaks at 9-12 true
-    # candidates per collider row (measured via the overflow counter over
-    # 120 frames); 16 = the next sublane-group multiple, zero overflow
     # sleeping on by default — the reference engine sleeps settled islands
-    # (SURVEY.md §2 row 11), and the tile engine's awake-prefix compaction
-    # (config.tile_awake_compaction) turns the settled pile's frozen mass
-    # into skipped tiles. ``sleep=False`` keeps every body live (the r3/r4
-    # bench semantics; also what contact-event consumers that must observe
-    # sleeping pairs want).
-    cfg = SolverConfig(dt=1 / 60, substeps=substeps, broadphase="grid",
-                       grid_cell_capacity=b.suggest_grid_cell_capacity(),
-                       frames_per_broadphase=8, slot_capacity=16,
-                       sleep_velocity=0.1 if sleep else 0.0, sleep_frames=30)
+    # (SURVEY.md §2 row 11). ``sleep=False`` keeps every body live (what
+    # contact-event consumers that must observe sleeping pairs want).
+    cfg = _pile_config(b, substeps, sleep_velocity=0.1 if sleep else 0.0)
     return Scene("pile", world, cap, cfg)
 
 
@@ -87,11 +89,10 @@ def pile_joints(
     substeps: int = 10,
 ) -> Scene:
     """Pile variant where ``joint_fraction`` of the bodies fall as
-    distance-jointed dumbbells (VERDICT r3 item 3 acceptance: jointed BIG
-    single worlds keep the tile-engine fast tier — reference ticks joints in
-    the same solve at any scale, SURVEY.md §3.2 step 4). Dumbbell pairs are
-    disjoint, so the joint graph is 1-colorable and the tile engine's XLA
-    joint pass costs one exact-GS sweep per substep."""
+    distance-jointed dumbbells (the reference ticks joints in the same solve
+    at any scale, SURVEY.md §3.2 step 4). Dumbbell pairs are disjoint, so
+    the joint graph is 1-colorable and the joint pass costs one exact-GS
+    sweep per substep."""
     import dataclasses
 
     from .base import tighten_joint_colors
@@ -145,14 +146,8 @@ def pile_joints(
                     n_joints += 1
 
     world, cap = b.build()
-    # sleeping on, as in pile(): settled dumbbells freeze, their tiles skip,
-    # and the whole XLA joint pass is skipped while every joint endpoint
-    # sleeps (run_tiled_frame's jlive gate)
-    cfg = SolverConfig(dt=1 / 60, substeps=substeps, broadphase="grid",
-                       grid_cell_capacity=b.suggest_grid_cell_capacity(),
-                       frames_per_broadphase=8, slot_capacity=16,
-                       sleep_velocity=0.1, sleep_frames=30)
-    cfg = tighten_joint_colors(world, cfg)
+    # sleeping on, as in pile(): settled dumbbells freeze as pairs
+    cfg = tighten_joint_colors(world, _pile_config(b, substeps))
     return Scene("pile_joints", world, cap, cfg)
 
 
@@ -164,18 +159,14 @@ def pile_compound(
     substeps: int = 10,
 ) -> Scene:
     """Pile variant where every dynamic body is a COMPOUND: two-collider
-    dumbbells and L-shapes (VERDICT r4 missing #1 acceptance — SURVEY.md §2
-    row 4's compound colliders [D], BASELINE.json:10, at the pile's own 10k
-    scale). 2*n collider rows ride the tile engine's collider-row layout
-    with owner shift-reductions; the XLA tier is the parity oracle
-    (tests/test_tiled_compound.py)."""
+    dumbbells and L-shapes (SURVEY.md §2 row 4's compound colliders [D],
+    BASELINE.json:10, at the pile's own 10k scale)."""
     rng = np.random.default_rng(seed)
     b = WorldBuilder(gravity=(0.0, -9.81))
 
     # compounds are ~2 half-widths wide: sparser spacing than pile(), and
     # column count scaled so the lattice keeps pile()'s ~4:1 aspect (a
-    # taller lattice means faster impacts — the fall phase is the window
-    # coverage's worst case, see pallas/tiles.py winover)
+    # taller lattice means faster impacts)
     spacing = body_half * 3.4
     cols = int(np.ceil(np.sqrt(n_bodies * 4 * 3.4 / 2.2)))
     rows = int(np.ceil(n_bodies / cols))
@@ -215,13 +206,4 @@ def pile_compound(
             count += 1
 
     world, cap = b.build()
-    # slot_capacity 24: compound collider rows see both their own AND
-    # sibling-adjacent candidates (a row sits inside another body's two
-    # shapes' reach) — the settled compound pile peaks above the plain
-    # pile's 9-12 true candidates per row; 16 overflowed (hard counter 259
-    # over 6x240 frames, measured r5), 24 is clean
-    cfg = SolverConfig(dt=1 / 60, substeps=substeps, broadphase="grid",
-                       grid_cell_capacity=b.suggest_grid_cell_capacity(),
-                       frames_per_broadphase=8, slot_capacity=24,
-                       sleep_velocity=0.1, sleep_frames=30)
-    return Scene("pile_compound", world, cap, cfg)
+    return Scene("pile_compound", world, cap, _pile_config(b, substeps))

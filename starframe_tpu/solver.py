@@ -1,7 +1,7 @@
 """XPBD substep solver: integrate → project positions → derive velocities →
 velocity solve.
 
-The TPU-native rebuild of starframe's solver core (SURVEY.md §2 rows 7-9;
+The array-program rebuild of starframe's solver core (SURVEY.md §2 rows 7-9;
 pipeline order is driver-normative, BASELINE.json:5 / SURVEY.md §3.2 step 5),
 following Müller et al. 2020 "Detailed Rigid Body Simulation with XPBD"
 (small steps): ~10 substeps per 60 Hz frame, one projection per substep,
@@ -9,12 +9,13 @@ velocities re-derived from pose deltas, restitution + dynamic friction in a
 velocity pass.
 
 Parallelization: instead of the reference's scalar Gauss-Seidel loop, every
-constraint row is solved simultaneously (one fused VPU pass over the whole
-constraint buffer) and the position corrections are scatter-accumulated per
-body, normalized by the per-body constraint count ("mass-splitting" averaged
+constraint row is solved simultaneously (one fused elementwise pass over the
+whole constraint buffer) and the position corrections are summed per body,
+normalized by the per-body constraint count ("mass-splitting" averaged
 Jacobi) with optional under-relaxation — the known-good GPU-engine pattern
-chosen in SURVEY.md §7.5. No two constraints ever race: the scatter-add is
-the only write, and XLA's segment-sum is deterministic on TPU.
+chosen in SURVEY.md §7.5. No two constraints ever race: the per-body sum is
+the only write, and it adds in an order fixed by the data, not the hardware
+(:mod:`starframe_tpu.segment`), so replays are bitwise equal.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from . import math2d as m2
+from . import segment
 from .config import SolverConfig
 from .contacts import Contacts
 from .state import (
@@ -83,43 +85,26 @@ def _accum_init(n: int) -> _Accum:
     )
 
 
-def _use_matmul_accum(n_bodies: int, cfg: SolverConfig) -> bool:
-    if cfg.accum == "matmul":
-        return True
-    if cfg.accum == "scatter":
-        return False
-    return n_bodies <= cfg.matmul_accum_max_bodies
+def joint_plan(joints: Joints, n: int):
+    """Per-frame segment plan for the joint rows' ``concat(body_a,
+    body_b)`` targets — the layout :func:`solve_joint_positions` and
+    :func:`velocity_joints` return. None for an empty joint table."""
+    if joints.j == 0:
+        return None
+    return segment.plan(jnp.concatenate([joints.body_a, joints.body_b]), n)
 
 
-def _accumulate(n: int, use_matmul: bool, idxs, vec2s, scalars, counts) -> _Accum:
-    """Segment-accumulate per-constraint contributions into per-body sums.
-
-    Two lowerings of the same math:
-    - ``scatter``: ``zeros.at[idx].add(val)`` — XLA TPU serializes scatters
-      with potentially-colliding indices, which measured ~30% of step time
-      on the batched-worlds config;
-    - ``matmul``: one-hot [K, N] against the stacked [K, 4] value matrix —
-      a single well-shaped MXU contraction. Wins for N up to ~1-2k bodies;
-      the scatter path remains for big single worlds (10k pile).
-    """
-    idx = jnp.concatenate(idxs)
+def _accumulate(plan, vec2s, scalars, counts) -> _Accum:
+    """Per-body sums of per-constraint contributions (each list holds one
+    array per target side, laid out like the ``idx`` of ``plan``), in an
+    order fixed by the data (:mod:`starframe_tpu.segment`)."""
     val = jnp.concatenate(
         [
             jnp.concatenate([v2, sc[:, None], ct[:, None]], axis=1)
             for v2, sc, ct in zip(vec2s, scalars, counts)
         ]
     )  # [K, 4]
-    if use_matmul:
-        onehot = (idx[:, None] == jnp.arange(n, dtype=idx.dtype)[None, :]).astype(
-            jnp.float32
-        )  # [K, N]
-        out = jax.lax.dot_general(
-            onehot, val, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,  # DEFAULT bf16-rounds values
-        )  # [N, 4]
-    else:
-        out = jnp.zeros((n, 4), jnp.float32).at[idx].add(val)
+    out = segment.segment_sum(val, plan)
     return _Accum(dpos=out[:, :2], dang=out[:, 2], count=out[:, 3])
 
 
@@ -159,7 +144,7 @@ def solve_joint_positions(
     """Position projection for distance/pin/weld joints and angle limits
     (starframe's user constraints — SURVEY.md §2 row 8). ``mask`` restricts
     the pass to one color batch (graph-colored Gauss-Seidel). Returns
-    contribution lists for :func:`_accumulate`."""
+    contribution lists for :func:`_accumulate` over :func:`joint_plan`."""
     ba, bb = joints.body_a, joints.body_b
     im_a, im_b = bodies.inv_mass[ba], bodies.inv_mass[bb]
     ii_a, ii_b = bodies.inv_inertia[ba], bodies.inv_inertia[bb]
@@ -205,7 +190,6 @@ def solve_joint_positions(
 
     n_active = lin_active.astype(jnp.float32) + ang_active.astype(jnp.float32)
     return (
-        [ba, bb],
         [-p_imp * im_a[:, None], p_imp * im_b[:, None]],
         [-ii_a * m2.cross2(ra, p_imp) - dlam_ang * ii_a,
          ii_b * m2.cross2(rb, p_imp) + dlam_ang * ii_b],
@@ -221,7 +205,8 @@ def solve_joint_positions(
 @jax.named_scope("velocity_joints")
 def velocity_joints(s: BodyState, bodies: Bodies, joints: Joints, h: float):
     """Joint velocity rows: angular motors (BASELINE.json:10) + damping.
-    Returns contribution lists for :func:`_accumulate`."""
+    Returns contribution lists for :func:`_accumulate` over
+    :func:`joint_plan`."""
     jba, jbb = joints.body_a, joints.body_b
     j_ii_a = bodies.inv_inertia[jba]
     j_ii_b = bodies.inv_inertia[jbb]
@@ -253,7 +238,6 @@ def velocity_joints(s: BodyState, bodies: Bodies, joints: Joints, h: float):
 
     j_act = (is_motor | damped).astype(jnp.float32)
     return (
-        [jba, jbb],
         [-p_d * j_im_a[:, None], p_d * j_im_b[:, None]],
         [-lam_m * j_ii_a - j_ii_a * m2.cross2(jra, p_d),
          lam_m * j_ii_b + j_ii_b * m2.cross2(jrb, p_d)],
@@ -266,14 +250,11 @@ def velocity_joints(s: BodyState, bodies: Bodies, joints: Joints, h: float):
 # ---------------------------------------------------------------------------
 
 
-def _accumulate_contacts(n_b: int, use_mm: bool, pd, vals_a, vals_b) -> _Accum:
-    from .kernels import accumulate_onehot, accumulate_scatter
-
-    if use_mm and pd.onehot_a is not None:
-        dpos, dang, count = accumulate_onehot(vals_a, vals_b, pd.onehot_a, pd.onehot_b)
-    else:
-        dpos, dang, count = accumulate_scatter(vals_a, vals_b, pd.body_a, pd.body_b, n_b)
-    return _Accum(dpos=dpos, dang=dang, count=count)
+def _accumulate_contacts(pd, vals_a, vals_b) -> _Accum:
+    """Per-body sums of the pair rows' ``[4, P]`` contributions to their A
+    and B bodies (rows: dx, dy, dang, count)."""
+    out = segment.segment_sum(jnp.concatenate([vals_a.T, vals_b.T]), pd.plan)
+    return _Accum(dpos=out[:, :2], dang=out[:, 2], count=out[:, 3])
 
 
 def substep(
@@ -285,6 +266,7 @@ def substep(
     h: float,
     cfg: SolverConfig,
     cb=None,
+    jplan=None,
 ):
     """One XPBD substep.
 
@@ -296,6 +278,7 @@ def substep(
     precomputed ``cb`` (``manifold_refresh='frame'``, the reference's
     pipeline order) the frame-start manifolds are reused across substeps and
     only the anchor kinematics are re-evaluated at current poses.
+    ``jplan`` is the frame's :func:`joint_plan`.
     """
     from .kernels import (
         bullet_advance_scale,
@@ -334,7 +317,6 @@ def substep(
             s.vel, s.ang_vel)
 
     n_b = s.pos.shape[0]
-    use_mm = _use_matmul_accum(n_b, cfg)
     # a zero-capacity joint table ([0]-shaped arrays) makes every joint pass
     # a no-op graph that XLA eliminates — no special-casing needed, but skip
     # tracing the color loop entirely for a little compile time
@@ -349,7 +331,7 @@ def substep(
             cfg.contact_compliance,
         )
         lam_n = lam_n + lam_i
-        acc2 = _accumulate_contacts(n_b, use_mm, pd, vals_a, vals_b)
+        acc2 = _accumulate_contacts(pd, vals_a, vals_b)
         # joints: graph-colored Gauss-Seidel — each color batch has no shared
         # dynamic bodies, so corrections apply exactly (BASELINE.json:5);
         # falls back to one averaged-Jacobi pass when coloring is disabled
@@ -361,14 +343,14 @@ def substep(
                 last = color == cfg.max_joint_colors - 1
                 msk = (joints.color >= color) if last else (joints.color == color)
                 j_contrib = solve_joint_positions(s, bodies, joints, h, mask=msk)
-                accj = _accumulate(n_b, use_mm, *j_contrib)
+                accj = _accumulate(jplan, *j_contrib)
                 # joint corrections are constraint maintenance, not
                 # depenetration — the rate cap (max_dpos_eff) applies only
                 # to contacts; capping joints makes stiff mechanisms spongy
                 s, dx, dth = _apply_accum(s, accj, 1.0, cfg.max_dpos, dx, dth)
         else:
             j_contrib = solve_joint_positions(s, bodies, joints, h)
-            accj = _accumulate(n_b, use_mm, *j_contrib)
+            accj = _accumulate(jplan, *j_contrib)
             acc2 = _Accum(acc2.dpos + accj.dpos, acc2.dang + accj.dang,
                           acc2.count + accj.count)
             s, dx, dth = _apply_accum(s, acc2, cfg.relaxation, cfg.max_dpos_eff, dx, dth)
@@ -388,10 +370,10 @@ def substep(
         gather_pair_vel(pd, v_tilde.vel, v_tilde.ang_vel),
         pd, cb, lam_n, h, cfg.restitution_threshold,
     )
-    accv = _accumulate_contacts(n_b, use_mm, pd, cv_a, cv_b)
+    accv = _accumulate_contacts(pd, cv_a, cv_b)
     if joints.j > 0:
         jv = velocity_joints(s, bodies, joints, h)
-        accjv = _accumulate(n_b, use_mm, *jv)
+        accjv = _accumulate(jplan, *jv)
         accv = _Accum(accv.dpos + accjv.dpos, accv.dang + accjv.dang,
                       accv.count + accjv.count)
     cnt = jnp.maximum(accv.count, 1.0)

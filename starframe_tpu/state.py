@@ -1,6 +1,6 @@
 """World state: fixed-capacity SoA arrays + host-side scene builder.
 
-TPU-native replacement for starframe's object storage and body/collider/
+Array-program replacement for starframe's object storage and body/collider/
 constraint model (SURVEY.md §2 rows 2-4, 8; generational arenas + typed keys
 in the Rust reference become fixed-capacity arrays + active masks + integer
 keys here, per the driver-normative design in BASELINE.json:5).
@@ -92,12 +92,12 @@ class Bodies:
 class Colliders:
     """Collision shapes, SoA over the collider axis ``[M]``.
 
-    Unified shape model (this repo's TPU-first redesign of starframe's
+    Unified shape model (this repo's array-first redesign of starframe's
     circle/capsule/convex-poly taxonomy, SURVEY.md §2 row 4 + §7.4): every
     shape is a *rounded convex polygon* — ``nverts`` core vertices dilated by
     ``radius``. circle = 1 vertex + r, capsule = 2 vertices + r, box/hexagon
     = 4/6 vertices (+ optional rounding). One narrowphase kernel covers all
-    pairs with no shape-type dispatch, which is exactly what the VPU wants.
+    pairs with no shape-type dispatch, which is exactly what a vector machine wants.
     """
 
     body_idx: jax.Array  # [M] i32 (owning body)
@@ -167,7 +167,7 @@ class Joints:
 class World:
     """The whole simulation state: one pytree, ready for jit/vmap/shard_map.
 
-    The TPU-native analogue of starframe's ``PhysicsWorld`` + hecs world
+    The array-program analogue of starframe's ``PhysicsWorld`` + hecs world
     (SURVEY.md §2 rows 2-3). Checkpoint/resume is trivial because this is a
     pytree of arrays (SURVEY.md §5.4) — see :mod:`starframe_tpu.io`.
     """
@@ -680,7 +680,7 @@ class WorldBuilder:
 
 # -- runtime spawn/despawn (between frames; SURVEY.md §7.2) -----------------
 #
-# Starframe's spawn APIs work mid-game (SURVEY.md §2 row 2). The TPU-native
+# Starframe's spawn APIs work mid-game (SURVEY.md §2 row 2). The array-program
 # equivalent: capacities are compile-time static, so WorldBuilder.build()
 # pre-allocates spare inactive rows (``reserve_*``) and these helpers
 # activate/deactivate rows by VALUE only — array shapes never change, so the

@@ -1,6 +1,6 @@
 """The one jitted ``step``: broadphase → narrowphase → XPBD substeps → events.
 
-TPU-native equivalent of ``PhysicsWorld::tick`` (SURVEY.md §3.2; stage order
+The array-program equivalent of ``PhysicsWorld::tick`` (SURVEY.md §3.2; stage order
 is driver-normative, BASELINE.json:5). The whole frame is a single traced
 program: control crosses host↔device exactly once per frame — or once per
 rollout via :func:`rollout`'s ``lax.scan`` — which is the discipline the 1e8
@@ -21,7 +21,7 @@ from .config import Capacity, SolverConfig
 from .contacts import Contacts
 from .diagnostics import Diagnostics, compute_diagnostics
 from .narrowphase import build_pair_data, narrowphase, world_verts
-from .solver import BodyState, substep
+from .solver import BodyState, joint_plan, substep
 from .state import World
 
 
@@ -35,21 +35,16 @@ def _capacity_of(world: World) -> Capacity:
     )
 
 
-def frame_prep(world: World, cfg: SolverConfig, max_pairs: int,
-               skip_onehot: bool = False):
+def frame_prep(world: World, cfg: SolverConfig, max_pairs: int):
     """Per-frame collision prep: AABBs + broadphase + hoisted PairData
     (SURVEY.md §3.2 steps 1-2). The AABB sweep covers the whole frame so the
     pair set stays valid while manifolds regenerate inside each substep."""
-    from .solver import _use_matmul_accum
-
     cap = dataclasses.replace(_capacity_of(world), max_pairs=max_pairs)
     wverts = world_verts(world)
     lo, hi = compute_aabbs(world, wverts, cfg.contact_margin, cfg.dt)
     pairs = broadphase(world, lo, hi, cap, cfg)
     pd = build_pair_data(
-        world.colliders, world.bodies, pairs.pair_a, pairs.pair_b, pairs.valid,
-        with_onehot=_use_matmul_accum(world.bodies.n, cfg) and not skip_onehot,
-    )
+        world.colliders, world.bodies, pairs.pair_a, pairs.pair_b, pairs.valid)
     return pairs, pd
 
 
@@ -79,47 +74,11 @@ def _empty_contacts(max_pairs: int) -> Contacts:
                     separation=z2)
 
 
-def _tiled_frame_step(world: World, cfg: SolverConfig, max_pairs: int,
-                      gravity, interpret: bool = False,
-                      ) -> tuple[World, Contacts, Diagnostics]:
-    """Big-single-world fast path (the 10k pile) via the sorted-sweep tile
-    engine. Contact *events* are not produced on this path (the empty
-    Contacts below) — build the step with ``with_contacts=True`` to force
-    the XLA path when events are consumed."""
-    from .tiled import tiled_step
-
-    new_world, tdiag = tiled_step(world, cfg, gravity, interpret=interpret)
-    b = new_world.bodies
-    mass = jnp.where(b.inv_mass > 0, 1.0 / jnp.maximum(b.inv_mass, 1e-12), 0.0)
-    inertia = jnp.where(b.inv_inertia > 0,
-                        1.0 / jnp.maximum(b.inv_inertia, 1e-12), 0.0)
-    ke = 0.5 * jnp.sum(mass * jnp.sum(b.vel**2, axis=-1)) + 0.5 * jnp.sum(
-        inertia * b.ang_vel**2)
-    # unified cross-tier semantics (VERDICT r3 item 8): all counts are
-    # UNDIRECTED (comparable with compute_diagnostics on the XLA tier) —
-    # pair_count = candidate pairs admitted to the solver, contact_count =
-    # manifold points generated, touching_count = pairs in actual contact.
-    # tests/test_diag_tiers.py pins the tiers against each other.
-    diag = Diagnostics(
-        pair_count=jnp.round(tdiag["pair_und"]).astype(jnp.int32),
-        pair_overflow=(tdiag["slot_overflow"] + tdiag["solve_overflow"]
-                       + tdiag["window_overflow"]
-                       + tdiag["large_overflow"]).astype(jnp.int32),
-        cell_overflow=jnp.zeros((), jnp.int32),
-        contact_count=jnp.round(tdiag["contact_und"]).astype(jnp.int32),
-        touching_count=jnp.round(tdiag["touching_und"]).astype(jnp.int32),
-        max_penetration=tdiag["max_penetration"],
-        kinetic_energy=ke,
-    )
-    return new_world, _empty_contacts(max_pairs), diag
-
-
 def step(
     world: World,
     cfg: SolverConfig,
     max_pairs: int,
     gravity: Optional[jax.Array] = None,
-    allow_tiled: bool = True,
 ) -> tuple[World, Contacts, Diagnostics]:
     """Advance one frame of ``cfg.dt`` seconds. Pure function of the world.
 
@@ -127,7 +86,7 @@ def step(
     per-tick forcefield argument — SURVEY.md §3.1).
 
     With ``cfg.sleep_velocity > 0`` the sleep system is active (starframe's
-    island sleeping, SURVEY.md §2 row 11, realized TPU-natively):
+    island sleeping, SURVEY.md §2 row 11, realized as array masks):
     bodies that stay slow for ``sleep_frames`` frames freeze exactly (their
     inverse masses are zeroed for the frame, so awake neighbors solve
     against them as static — no drift), a touching awake body wakes them
@@ -137,9 +96,8 @@ def step(
     """
     g = world.gravity if gravity is None else gravity
     if cfg.sleep_velocity <= 0.0:
-        return _live_step(world, cfg, max_pairs, g, allow_tiled)
-    live, skip, any_awake = _sleep_branches(world, cfg, max_pairs, g,
-                                            allow_tiled)
+        return _live_step(world, cfg, max_pairs, g)
+    live, skip, any_awake = _sleep_branches(world, cfg, max_pairs, g)
     return jax.lax.cond(any_awake, live, skip, world)
 
 
@@ -149,9 +107,9 @@ def _joint_slow_closure(slow, joints, hops: int = 3):
     only counts as slow while its joint partners are slow too, so a dumbbell
     sleeps as a PAIR — never one half frozen while the other yanks against
     it (measured r5: half-frozen dumbbells re-jitter the 10k jointed pile
-    into wake avalanches and resort storms). ``hops`` bounds in-frame
-    propagation along chains; longer chains converge across frames (the
-    counter must run out anyway). Shared by all tiers."""
+    into wake avalanches). ``hops`` bounds in-frame propagation along
+    chains; longer chains converge across frames (the counter must run out
+    anyway)."""
     if joints is None or joints.body_a.shape[0] == 0:
         return slow
     ja, jb = joints.body_a, joints.body_b
@@ -177,25 +135,13 @@ def _joint_wake_closure(wake, joints, hops: int = 3):
     return wake
 
 
-def _sleep_branches(world, cfg, max_pairs, g, allow_tiled):
+def _sleep_branches(world, cfg, max_pairs, g):
     b = world.bodies
     dynamic = b.inv_mass > 0
     asleep = (b.sleep_count >= cfg.sleep_frames) & dynamic
     any_awake = jnp.any(dynamic & jnp.logical_not(asleep))
 
-    from .tiled import use_tiled
-
-    tiled = allow_tiled and use_tiled(world, cfg)
-
     def live(world):
-        if tiled:
-            # the tiled path keeps true masses here (sleepers would otherwise
-            # be misclassified into the static large-set at _enter_tiles);
-            # the freeze happens inside tiled._run_frame, which zeroes
-            # sleepers' EFFECTIVE inverse masses for the frame (exact freeze,
-            # same semantics as the XLA branch below) and skips tiles whose
-            # whole 3-tile window is asleep
-            return _live_step(world, cfg, max_pairs, g, allow_tiled)
         bw = world.bodies
         awake_f = 1.0 - asleep.astype(jnp.float32)
         eff = dataclasses.replace(
@@ -204,7 +150,7 @@ def _sleep_branches(world, cfg, max_pairs, g, allow_tiled):
                 bw, inv_mass=bw.inv_mass * awake_f,
                 inv_inertia=bw.inv_inertia * awake_f),
         )
-        nw, contacts, diag = _live_step(eff, cfg, max_pairs, g, False)
+        nw, contacts, diag = _live_step(eff, cfg, max_pairs, g)
         # restore true masses; reset the sleep counter of any body touching
         # a FAST partner (the island rule: a body cannot sleep — and a
         # sleeper wakes — while something moving is in contact with it;
@@ -250,7 +196,6 @@ def step_world(
     cfg: SolverConfig,
     max_pairs: int,
     gravity: Optional[jax.Array] = None,
-    allow_tiled: bool = True,
 ) -> World:
     """World-only step: like :func:`step` but the all-asleep skip branch
     carries ONLY the world through the ``lax.cond`` — contacts/diagnostics
@@ -259,9 +204,8 @@ def step_world(
     bodies). This is what ``make_step(with_contacts=False)`` builds."""
     g = world.gravity if gravity is None else gravity
     if cfg.sleep_velocity <= 0.0:
-        return _live_step(world, cfg, max_pairs, g, allow_tiled)[0]
-    live, skip, any_awake = _sleep_branches(world, cfg, max_pairs, g,
-                                            allow_tiled)
+        return _live_step(world, cfg, max_pairs, g)[0]
+    live, skip, any_awake = _sleep_branches(world, cfg, max_pairs, g)
 
     def skip_world(w):
         bw = w.bodies
@@ -276,13 +220,7 @@ def _live_step(
     cfg: SolverConfig,
     max_pairs: int,
     g,
-    allow_tiled: bool = True,
 ) -> tuple[World, Contacts, Diagnostics]:
-    if allow_tiled:
-        from .tiled import use_tiled
-
-        if use_tiled(world, cfg):
-            return _tiled_frame_step(world, cfg, max_pairs, g)
     pairs, pd = frame_prep(world, cfg, max_pairs)
 
     # 3-5: XPBD substep loop
@@ -310,9 +248,12 @@ def _live_step(
             speculative_margin(pd, b, cfg),
         )
 
+    jplan = joint_plan(world.joints, b.n)
+
     def body_fn(_, carry):
         s, touched = carry
-        s, _, t = substep(s, b, pd, world.joints, g, h, cfg, cb=cb_frame)
+        s, _, t = substep(s, b, pd, world.joints, g, h, cfg, cb=cb_frame,
+                          jplan=jplan)
         return s, touched | t
 
     s, touched = jax.lax.fori_loop(0, cfg.substeps, body_fn, (s0, touched0))
@@ -364,8 +305,7 @@ def make_step(
     steady state (SURVEY.md §7.8.5)."""
 
     def _full(world: World):
-        # events/contacts consumed: the tiled path cannot produce them
-        return step(world, cfg, max_pairs, allow_tiled=False)
+        return step(world, cfg, max_pairs)
 
     def _plain(world: World):
         return step_world(world, cfg, max_pairs)

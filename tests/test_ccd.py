@@ -2,8 +2,8 @@
 
 Reference surface: starframe/Box2D bullet semantics (SURVEY.md §2 row 6's
 CCD deferral closed in r3): a body flagged ``bullet=True`` must not tunnel
-through thin geometry at ANY speed. TPU-native realization: no per-pair TOI
-root-finding loop — the frame's speculative manifolds already carry
+through thin geometry at ANY speed. Array-program realization: no per-pair
+TOI root-finding loop — the frame's speculative manifolds already carry
 frame-start normals + anchors, so the clamp is one fused P-last pass
 (kernels.bullet_advance_scale) + a scatter-min, inside the same jitted
 substep.
@@ -105,20 +105,19 @@ def test_ccd_requires_frame_manifolds():
 
 
 # ---------------------------------------------------------------------------
-# kernel tier (pallas/frame2.py): the same TOI clamp runs IN-KERNEL so
-# batched RL workloads with bullet projectiles stay on the fast path
-# (VERDICT r3 item 4; BASELINE.json:11 is the workload shape)
+# batched worlds: the same TOI clamp under vmap, so batched RL workloads with
+# bullet projectiles keep CCD (BASELINE.json:11 is the workload shape)
 # ---------------------------------------------------------------------------
+
+import numpy as np
 
 from starframe_tpu import parallel as par
 from starframe_tpu.config import Capacity
 
-KCFG = dataclasses.replace(CFG, slot_capacity=8)
 
-
-def _bullet_batch(speed, restitution=0.0, target="static", n=128, worlds=4):
-    """Kernel-eligible (128-multiple) twin of ``_bullet_world``: wall +
-    bullet + far-away padding bodies, replicated into a world batch."""
+def _bullet_batch(speed, restitution=0.0, target="static", n=8, worlds=4):
+    """``_bullet_world`` plus far-away filler bodies, replicated into a world
+    batch with per-world speeds ``speed * (1 + 0.1 * w)``."""
     wb = WorldBuilder()
     wb.gravity = (0.0, 0.0)
     wall = wb.add_body(pos=(0.0, 0.0), body_type=target)
@@ -131,94 +130,64 @@ def _bullet_batch(speed, restitution=0.0, target="static", n=128, worlds=4):
     cap = Capacity(max_bodies=n, max_colliders=n, max_pairs=4 * n,
                    max_joints=0, max_verts=4)
     w, cap = wb.build(cap)
-    return par.replicate_world(w, worlds), cap
+    batch = par.replicate_world(w, worlds)
+    scale = 1.0 + 0.1 * jnp.arange(worlds, dtype=jnp.float32)
+    vel = batch.bodies.vel.at[:, 1, 0].multiply(scale)
+    batch = dataclasses.replace(
+        batch, bodies=dataclasses.replace(batch.bodies, vel=vel))
+    return batch, cap
 
 
-def _run_kernel(worlds, cfg, frames):
-    stepk = jax.jit(lambda w: par.frame2_step(w, cfg, interpret=True)[0])
+def _run_batch(worlds, cfg, frames, max_pairs=32):
+    stepb = jax.jit(lambda w: par.batched_step(w, cfg, max_pairs))
     for _ in range(frames):
-        worlds = stepk(worlds)
+        worlds = stepb(worlds)
     return worlds
 
 
-@pytest.mark.parametrize("speed", [200.0, 1000.0])
-def test_frame2_bullet_never_tunnels(speed):
+@pytest.mark.parametrize("speed", [200.0, 1000.0, 10000.0])
+def test_batched_bullet_never_tunnels(speed):
     worlds, _ = _bullet_batch(speed)
-    # ccd no longer disqualifies the kernel tier
-    assert par.frame2_shapes_ok(worlds, KCFG)
-    worlds = _run_kernel(worlds, KCFG, frames=30)
-    import numpy as np
-
+    worlds = _run_batch(worlds, CFG, frames=30)
     x = np.asarray(worlds.bodies.pos[:, 1, 0])
     assert ((WALL_FACE - 0.06 < x) & (x <= WALL_FACE + 0.01)).all(), x
 
 
-def test_frame2_bullet_restitution_sees_true_approach_speed():
-    worlds, _ = _bullet_batch(1000.0, restitution=0.9)
-    worlds = _run_kernel(worlds, KCFG, frames=10)
-    import numpy as np
+@pytest.mark.parametrize("speed", [1000.0, 10000.0])
+def test_batched_without_ccd_bullet_crosses(speed):
+    """The failure mode the clamp prevents, per world of the batch (at these
+    speeds one substep jumps the whole wall)."""
+    worlds, _ = _bullet_batch(speed)
+    worlds = _run_batch(worlds, dataclasses.replace(CFG, ccd=False), 30)
+    assert (np.asarray(worlds.bodies.pos[:, 1, 0]) > 0.0).all()
 
+
+def test_batched_bullet_restitution_sees_true_approach_speed():
+    worlds, _ = _bullet_batch(1000.0, restitution=0.9, worlds=1)
+    worlds = _run_batch(worlds, CFG, frames=10)
     vx = np.asarray(worlds.bodies.vel[:, 1, 0])
     assert ((-950.0 < vx) & (vx < -820.0)).all(), vx
 
 
-def test_frame2_bullet_into_dynamic_target_transfers_momentum():
+def test_batched_bullet_into_dynamic_target_transfers_momentum():
     worlds, _ = _bullet_batch(500.0, target="dynamic")
-    worlds = _run_kernel(worlds, KCFG, frames=30)
-    import numpy as np
-
+    worlds = _run_batch(worlds, CFG, frames=30)
     assert (np.asarray(worlds.bodies.pos[:, 1, 0])
             < np.asarray(worlds.bodies.pos[:, 0, 0])).all()
     assert (np.asarray(worlds.bodies.vel[:, 0, 0]) > 0.1).all()
 
 
-# ---------------------------------------------------------------------------
-# tile-engine tier (pallas/tiles.py): per-substep TOI kernel (_ccd_kernel)
-# feeding clamped pose advance into project/apply
-# ---------------------------------------------------------------------------
-
-
-def test_tiled_bullet_never_tunnels():
-    from starframe_tpu.tiled import tiled_rollout
-
-    n = 1024  # 4 tiles of T=256 — the tile path's minimum scale
-    wb = WorldBuilder()
-    wb.gravity = (0.0, 0.0)
-    wall = wb.add_body(pos=(0.0, 0.0), body_type="static")
-    wb.add_collider(wall, Shape.box(0.1, 2.0))
-    b = wb.add_body(pos=(-3.0, 0.0), vel=(200.0, 0.0), bullet=True)
-    wb.add_collider(b, Shape.circle(0.05))
-    for i in range(n - 2):
-        pad = wb.add_body(pos=(1000.0 + 2.0 * (i % 256), 5.0 * (i // 256)))
-        wb.add_collider(pad, Shape.circle(0.3))
-    cap = Capacity(max_bodies=n, max_colliders=n, max_pairs=8 * n,
-                   max_joints=0, max_verts=4)
-    w, cap = wb.build(cap)
-
-    cfg = dataclasses.replace(KCFG, frames_per_broadphase=1)
-    out, diag = jax.jit(
-        lambda w: tiled_rollout(w, cfg, n_frames=12, interpret=True))(w)
-    import numpy as np
-
-    assert int(np.asarray(diag["slot_overflow"])) == 0
-    x = float(np.asarray(out.bodies.pos[1, 0]))
-    # stopped ON the near face instead of crossing 40 m of wall-free space
-    assert WALL_FACE - 0.06 < x <= WALL_FACE + 0.01, x
-
-
-def test_frame2_ccd_inert_for_unflagged_scenes():
-    """ccd=True on the kernel tier must not perturb unflagged batches:
-    every TOI factor is exactly 1, the where() keeps poses bitwise."""
-    worlds, _ = _bullet_batch(2.0)  # slow, and we strip the bullet flag
-    import dataclasses as dc
-
+def test_batched_ccd_inert_for_unflagged_scenes():
+    """ccd=True under vmap must not perturb unflagged batches: every TOI
+    factor is exactly 1, the where() keeps poses bitwise."""
     from starframe_tpu.state import BODY_BULLET
 
+    worlds, _ = _bullet_batch(2.0)
     b = worlds.bodies
-    worlds = dc.replace(
-        worlds, bodies=dc.replace(b, flags=b.flags & ~BODY_BULLET))
-    on = _run_kernel(worlds, KCFG, frames=20)
-    off = _run_kernel(worlds, dataclasses.replace(KCFG, ccd=False), frames=20)
+    worlds = dataclasses.replace(
+        worlds, bodies=dataclasses.replace(b, flags=b.flags & ~BODY_BULLET))
+    on = _run_batch(worlds, CFG, frames=20)
+    off = _run_batch(worlds, dataclasses.replace(CFG, ccd=False), frames=20)
     assert jnp.array_equal(on.bodies.pos, off.bodies.pos)
     assert jnp.array_equal(on.bodies.angle, off.bodies.angle)
     assert jnp.array_equal(on.bodies.vel, off.bodies.vel)

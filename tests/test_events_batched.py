@@ -1,10 +1,13 @@
-"""Contact events + batched rollout + Pallas-path determinism
+"""Contact events + batched rollout + replay determinism
 (BASELINE.json:11 "deterministic replay")."""
 
 import numpy as np
+import pytest
 
 import starframe_tpu as sf
 from starframe_tpu.shapes import Shape
+
+from mixed_scene import mixed_scene
 
 
 def test_contact_events_started_and_ended():
@@ -73,7 +76,8 @@ def test_batched_rollout_and_determinism():
     roll = sf.parallel.make_batched_rollout(scene.config, scene.capacity.max_pairs, 20)
     final1, traj1, diag1 = roll(scene.world)
     final2, traj2, _ = roll(scene.world)
-    assert int(np.asarray(diag1["slot_overflow"])) == 0
+    assert int(np.asarray(diag1["pair_overflow"])) == 0
+    assert int(np.asarray(diag1["cell_overflow"])) == 0
     # bit-exact determinism across runs (BASELINE.json:11)
     np.testing.assert_array_equal(np.asarray(final1.bodies.pos), np.asarray(final2.bodies.pos))
     np.testing.assert_array_equal(np.asarray(traj1[0]), np.asarray(traj2[0]))
@@ -81,9 +85,8 @@ def test_batched_rollout_and_determinism():
     assert np.isfinite(np.asarray(final1.bodies.pos)).all()
 
 
-def test_pallas_path_determinism_on_tpu():
-    """On TPU the batched path runs the Pallas kernel; replays must be
-    bit-exact. (On CPU this exercises the XLA path instead — still useful.)"""
+def test_batched_step_determinism():
+    """Frame-by-frame batched replays are bit-exact."""
     scene = sf.scenes.batched_worlds(n_worlds=4, n_bodies=32, substeps=6, seed=3)
     step = sf.make_batched_step(scene.config, scene.capacity.max_pairs, donate=False)
 
@@ -99,60 +102,66 @@ def test_pallas_path_determinism_on_tpu():
     np.testing.assert_array_equal(a1, a2)
 
 
-def test_kernel_event_masks_match_xla_diffs():
-    """VERDICT r2 item 8: started/ended events computed entirely on the
-    kernel path (touch tables + key diff) match the XLA path's
-    with_contacts diff, frame by frame."""
-    import jax
+def _event_sets(prev_keys, keys, m):
     import jax.numpy as jnp
 
+    from starframe_tpu.events import key_event_masks, keys_to_set
+
+    started, ended = key_event_masks(prev_keys, keys)
+    return (keys_to_set(np.asarray(jnp.where(started, keys, -1)), m),
+            keys_to_set(np.asarray(jnp.where(ended, prev_keys, -1)), m))
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_batched_event_masks_match_xla_diffs(seed):
+    """started/ended events computed on device from batched_step_events'
+    canonical keys match each world's per-step ``diff_contacts``, frame by
+    frame."""
+    import jax
+
     from starframe_tpu.config import SolverConfig
-    from starframe_tpu.events import (diff_contacts, key_event_masks,
-                                      keys_to_set, touching_keys)
-    from starframe_tpu.parallel import batched_step_events, replicate_world
+    from starframe_tpu.events import diff_contacts, keys_to_set
+    from starframe_tpu.parallel import (batch_worlds, batched_step_events,
+                                        world_slice)
     from starframe_tpu.step import step
 
-    from test_frame2 import _scene
+    worlds_list = [mixed_scene(n=32, seed=seed + k)[0] for k in range(2)]
+    _, cap = mixed_scene(n=32, seed=seed)
+    cfg = SolverConfig(substeps=4, restitution_threshold=0.1)
+    worlds = batch_worlds(worlds_list)
+    M = worlds.colliders.m
 
-    world, cap = _scene(n=128, seed=21)
-    cfg = SolverConfig(substeps=4, slot_capacity=8, manifold_refresh="frame")
-    worlds = replicate_world(world, 2)
-    M = world.colliders.m
-
+    ev_step = jax.jit(lambda w: batched_step_events(w, cfg, cap.max_pairs))
+    step_x = jax.jit(lambda w: step(w, cfg, cap.max_pairs)[:2])
     w_k = worlds
-    w_x = world
-    step_x = jax.jit(
-        lambda w: step(w, cfg, cap.max_pairs, allow_tiled=False)[:2])
-    prev_keys = None
-    prev_contacts = None
-    for frame in range(3):
-        w_k, keys, diag = batched_step_events(w_k, cfg, interpret=True)
-        assert int(np.asarray(diag["slot_overflow"])) == 0
-        w_x, contacts = step_x(w_x)
-
-        kset = keys_to_set(np.asarray(keys[0]), M)
-        ck, touching = touching_keys(contacts, M)
-        xset = keys_to_set(np.asarray(jnp.where(touching, ck, -1)), M)
-        assert kset == xset, f"frame {frame}: touching sets differ"
-
-        if prev_keys is not None:
-            started, ended = key_event_masks(prev_keys[0], keys[0])
-            k_started = keys_to_set(
-                np.asarray(jnp.where(started, keys[0], -1)), M)
-            k_ended = keys_to_set(
-                np.asarray(jnp.where(ended, prev_keys[0], -1)), M)
-            x_started, _, x_ended = diff_contacts(prev_contacts, contacts)
-            assert k_started == x_started, f"frame {frame}: started differ"
-            assert k_ended == x_ended, f"frame {frame}: ended differ"
+    w_x = list(worlds_list)
+    prev_keys, prev_contacts = None, [None, None]
+    n_events = 0
+    for frame in range(24):
+        w_k, keys, diag = ev_step(w_k)
+        assert int(np.asarray(diag["pair_overflow"])) == 0
+        for wi in range(2):
+            w_x[wi], contacts = step_x(w_x[wi])
+            np.testing.assert_array_equal(
+                np.asarray(world_slice(w_k, wi).bodies.pos),
+                np.asarray(w_x[wi].bodies.pos))
+            x_started, x_persisted, x_ended = diff_contacts(
+                prev_contacts[wi], contacts)
+            assert keys_to_set(np.asarray(keys[wi]), M) == (
+                x_started | x_persisted), f"frame {frame}: touching differ"
+            if prev_keys is not None:
+                k_started, k_ended = _event_sets(prev_keys[wi], keys[wi], M)
+                assert k_started == x_started, f"frame {frame}: started"
+                assert k_ended == x_ended, f"frame {frame}: ended"
+                n_events += len(k_started) + len(k_ended)
+            prev_contacts[wi] = jax.tree.map(np.asarray, contacts)
         prev_keys = keys
-        prev_contacts = jax.tree.map(lambda x: np.asarray(x), contacts)
+    assert n_events > 0, "scene produced no contact events to compare"
 
 
 def test_batched_rollout_with_keys_matches_per_step_events():
     """batched_rollout(with_keys=True) stacks the same canonical touch keys
-    per frame (as SETS — slot ordering may differ across table builds) that
-    batched_step_events produces step by step, on both the K=1 inline path
-    and the K>1 guarded path."""
+    per frame that batched_step_events produces step by step."""
     import jax
 
     from starframe_tpu.config import SolverConfig
@@ -160,25 +169,26 @@ def test_batched_rollout_with_keys_matches_per_step_events():
     from starframe_tpu.parallel import (batched_rollout, batched_step_events,
                                         replicate_world)
 
-    from test_frame2 import _scene
-
-    world, cap = _scene(n=128, seed=11)
+    world, cap = mixed_scene(n=32, seed=11)
     worlds = replicate_world(world, 2)
     M = world.colliders.m
-    n_frames = 4
-    for K in (1, 3):
-        cfg = SolverConfig(substeps=4, slot_capacity=8,
-                           manifold_refresh="frame", frames_per_broadphase=K)
-        final, traj, diag = jax.jit(
-            lambda w: batched_rollout(w, cfg, cap.max_pairs, n_frames,
-                                      interpret=True, with_keys=True))(worlds)
-        (_, keys) = traj
-        assert keys.shape[0] == n_frames
-        w_s = worlds
-        for f in range(n_frames):
-            w_s, keys_s, dg = batched_step_events(w_s, cfg, interpret=True)
-            assert int(np.asarray(dg["slot_overflow"])) == 0
-            for wi in range(2):
-                roll_set = keys_to_set(np.asarray(keys[f][wi]), M)
-                step_set = keys_to_set(np.asarray(keys_s[wi]), M)
-                assert roll_set == step_set, (K, f, wi)
+    n_frames = 18
+    cfg = SolverConfig(substeps=4)
+    final, traj, diag = jax.jit(
+        lambda w: batched_rollout(w, cfg, cap.max_pairs, n_frames,
+                                  with_keys=True))(worlds)
+    (_, keys) = traj
+    assert keys.shape == (n_frames, 2, cap.max_pairs)
+    ev_step = jax.jit(lambda w: batched_step_events(w, cfg, cap.max_pairs))
+    w_s = worlds
+    n_touching = 0
+    for f in range(n_frames):
+        w_s, keys_s, dg = ev_step(w_s)
+        assert int(np.asarray(dg["pair_overflow"])) == 0
+        for wi in range(2):
+            roll_set = keys_to_set(np.asarray(keys[f][wi]), M)
+            assert roll_set == keys_to_set(np.asarray(keys_s[wi]), M), (f, wi)
+            n_touching += len(roll_set)
+    np.testing.assert_array_equal(np.asarray(final.bodies.pos),
+                                  np.asarray(w_s.bodies.pos))
+    assert n_touching > 0

@@ -28,16 +28,12 @@ def test_batched_step_equals_per_world_step(small_batch):
 
 
 def test_sharded_step_matches_unsharded(small_batch, cpu_devices):
-    import dataclasses
-
     scene = small_batch
     mesh = sf.parallel.make_mesh(cpu_devices[:8])
 
-    # unsharded reference on cpu device 0 (pallas only lowers on TPU, so the
-    # CPU reference must take the XLA path explicitly)
-    cfg_cpu = dataclasses.replace(scene.config, use_pallas=False)
+    # unsharded reference on cpu device 0
     ref_in = jax.device_put(scene.world, cpu_devices[0])
-    bstep = sf.make_batched_step(cfg_cpu, scene.capacity.max_pairs, donate=False)
+    bstep = sf.make_batched_step(scene.config, scene.capacity.max_pairs, donate=False)
     ref = bstep(ref_in)
 
     sharded_in = sf.parallel.shard_world(scene.world, mesh)
@@ -86,10 +82,13 @@ def test_global_metrics_aggregate(small_batch, cpu_devices):
     assert m["n_worlds"] == 16
 
 
-def test_graft_entry_dryrun():
-    """The driver's multichip dry run must pass on the virtual mesh."""
+def test_graft_entry_dryrun(cpu_devices):
+    """The multi-device dry run passes on the virtual CPU mesh."""
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import __graft_entry__ as g
 
-    g.dryrun_multichip(8)
+    with jax.default_device(cpu_devices[0]):
+        g.dryrun_multichip(8)

@@ -1,16 +1,10 @@
-"""Multi-chip Pallas path (VERDICT r2 item 1): the slot kernels wrapped in
-``shard_map`` over the world axis, validated on the 8-virtual-CPU mesh in
-Pallas interpret mode — the exact code path ``make_sharded_step`` takes on a
-real TPU mesh, minus Mosaic lowering (which the single-chip TPU tests pin).
-
-Also covers the K-frame broadphase velocity guard (VERDICT r2 item 4) and
-the batched-path overflow diagnostics (VERDICT r2 item 3).
+"""Sharded world axis: ``make_sharded_step`` (``shard_map`` over a 1-D mesh)
+against the unsharded batched step on 2, 4 and 8 virtual CPU devices, for
+the batched, rope and mechanism scenes; the compiled sharded step holds no
+collective. Also covers the batched overflow diagnostics (SURVEY.md §4.6).
 """
 
-import dataclasses
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -20,96 +14,75 @@ from starframe_tpu.config import Capacity, SolverConfig
 from starframe_tpu.shapes import Shape
 from starframe_tpu.state import WorldBuilder
 
-from test_frame2 import _scene
+N_WORLDS = 8
+COLLECTIVES = ("all-reduce", "all-gather", "collective-permute", "all-to-all",
+               "reduce-scatter")
+
+
+def _scene(name):
+    if name == "batched":
+        return sf.scenes.batched_worlds(n_worlds=N_WORLDS, n_bodies=16,
+                                        substeps=2)
+    base = (sf.scenes.rope_bridge(n_particles=12, n_loads=2) if name == "rope"
+            else sf.scenes.mechanism(n_pendulum_links=3))
+    return sf.scenes.batchify(base, N_WORLDS, seed=1)
 
 
 @pytest.fixture(scope="module")
-def kernel_scene():
-    """16 worlds x 128 bodies — kernel-eligible (128-multiples) and evenly
-    shardable over 8 devices (2 worlds/shard, a legal one-block sublane dim)."""
-    return sf.scenes.batched_worlds(n_worlds=16, n_bodies=128, substeps=2)
+def scenes():
+    return {name: _scene(name) for name in ("batched", "rope", "mechanism")}
 
 
-def test_shardmap_kernel_step_matches_unsharded(kernel_scene, cpu_devices):
-    scene = kernel_scene
-    mesh = par.make_mesh(cpu_devices[:8])
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+@pytest.mark.parametrize("name", ["batched", "rope", "mechanism"])
+def test_sharded_step_matches_unsharded(scenes, cpu_devices, name, n_devices):
+    scene = scenes[name]
+    cfg, mp = scene.config, scene.capacity.max_pairs
+    mesh = par.make_mesh(cpu_devices[:n_devices])
+    sstep = par.make_sharded_step(cfg, mp, mesh, donate=False, with_diag=True)
+    ref_step = par.make_batched_step(cfg, mp, donate=False)
 
-    ref = par.frame2_step(
-        jax.device_put(scene.world, cpu_devices[0]), scene.config,
-        interpret=True)[0]
-
-    sstep = par.make_shardmap_kernel_step(
-        scene.config, mesh, interpret=True, donate=False)
-    out = sstep(par.shard_world(scene.world, mesh))
-
+    w = par.shard_world(scene.world, mesh)
+    ref = jax.device_put(scene.world, cpu_devices[0])
+    for _ in range(2):
+        w, diag = sstep(w)
+        ref = ref_step(ref)
     np.testing.assert_allclose(
-        np.asarray(jax.device_get(out.bodies.pos)),
+        np.asarray(jax.device_get(w.bodies.pos)),
         np.asarray(jax.device_get(ref.bodies.pos)), atol=1e-5)
     np.testing.assert_allclose(
-        np.asarray(jax.device_get(out.bodies.vel)),
+        np.asarray(jax.device_get(w.bodies.vel)),
         np.asarray(jax.device_get(ref.bodies.vel)), atol=1e-4)
-    # output stays distributed over all 8 devices
-    devs = {s.device for s in out.bodies.pos.addressable_shards}
-    assert len(devs) == 8
+    # one counter entry per shard, all clean
+    for k, v in diag.items():
+        assert v.shape == (n_devices,), k
+        assert int(np.asarray(v).max()) == 0, k
+    # the output stays distributed over the whole mesh
+    assert len({s.device for s in w.bodies.pos.addressable_shards}) == n_devices
 
 
-def test_shardmap_kernel_step_has_no_collectives(kernel_scene, cpu_devices):
+@pytest.mark.parametrize("name", ["batched", "rope", "mechanism"])
+def test_sharded_step_has_no_collectives(scenes, cpu_devices, name):
     """Worlds are embarrassingly parallel: the compiled sharded step must
-    contain ZERO cross-device communication (the linear-scaling argument,
-    BASELINE.json:5)."""
-    scene = kernel_scene
-    mesh = par.make_mesh(cpu_devices[:8])
-    sstep = par.make_shardmap_kernel_step(
-        scene.config, mesh, interpret=True, donate=False)
+    contain no cross-device communication (BASELINE.json:11's per-device x
+    linear-scaling argument)."""
+    scene = scenes[name]
+    mesh = par.make_mesh(cpu_devices[:4])
+    sstep = par.make_sharded_step(scene.config, scene.capacity.max_pairs, mesh,
+                                  donate=False, with_diag=True)
     txt = sstep.lower(par.shard_world(scene.world, mesh)).compile().as_text()
-    for op in ("all-reduce", "all-gather", "collective-permute", "all-to-all",
-               "reduce-scatter"):
+    for op in COLLECTIVES:
         assert op not in txt, f"unexpected collective {op} in sharded step"
 
 
-def test_shardmap_kernel_rollout_matches_unsharded(kernel_scene, cpu_devices):
-    scene = kernel_scene
-    mesh = par.make_mesh(cpu_devices[:8])
-
-    roll = par.make_shardmap_kernel_rollout(
-        scene.config, mesh, n_frames=4, interpret=True)
-    fin, traj, diag = roll(par.shard_world(scene.world, mesh))
-
-    ref_fin, ref_traj, ref_diag = jax.jit(
-        lambda w: par.batched_rollout(w, scene.config, 0, 4, interpret=True)
-    )(jax.device_put(scene.world, cpu_devices[0]))
-
-    np.testing.assert_allclose(
-        np.asarray(jax.device_get(fin.bodies.pos)),
-        np.asarray(jax.device_get(ref_fin.bodies.pos)), atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(jax.device_get(traj[0])),
-        np.asarray(jax.device_get(ref_traj[0])), atol=1e-5)
-    # per-shard overflow counters all clean, and agree with the unsharded run
-    assert int(np.asarray(jax.device_get(diag["slot_overflow"])).max()) == 0
-    assert int(np.asarray(jax.device_get(ref_diag["slot_overflow"]))) == 0
-
-
-def test_make_sharded_step_routes_to_shardmap_on_tpu_mesh(kernel_scene):
-    """On a TPU mesh an eligible batch must take the shard_map kernel path
-    (exercised here only as the routing decision; the kernel itself is
-    covered by the interpret tests above and the TPU parity tests)."""
-    scene = kernel_scene
-    assert par.frame2_shapes_ok(scene.world, scene.config, n_shards=8)
-    # ineligible per-shard world counts fall back
-    assert not par.frame2_shapes_ok(scene.world, scene.config, n_shards=5)
-    cfg_off = dataclasses.replace(scene.config, use_pallas=False)
-    assert not par.frame2_shapes_ok(scene.world, cfg_off, n_shards=8)
-
-
 # ---------------------------------------------------------------------------
-# overflow diagnostics on the batched kernel path (VERDICT r2 item 3)
+# overflow diagnostics on the batched path
 # ---------------------------------------------------------------------------
 
 
-def _crowded_scene(n=128, cluster=8):
-    """A deliberate slot-crowder: `cluster` dynamic circles stacked in one
-    spot, so every row has cluster-1 true candidates."""
+def _crowded_scene(n=32, cluster=8):
+    """A deliberate pair-buffer crowder: ``cluster`` dynamic circles stacked
+    in one spot, so the cluster alone has cluster*(cluster-1)/2 pairs."""
     b = WorldBuilder(gravity=(0.0, 0.0))
     for i in range(cluster):
         body = b.add_body(pos=(0.01 * i, 0.01 * i))
@@ -125,166 +98,55 @@ def _crowded_scene(n=128, cluster=8):
 
 
 def test_slot_overflow_surfaces_in_rollout_diag():
+    """A pair buffer smaller than the cluster's 28 pairs must surface as a
+    hard ``pair_overflow`` in the rollout diag; a big enough one is clean."""
     world, cap = _crowded_scene(cluster=8)
-    worlds = par.replicate_world(world, 8)
+    worlds = par.replicate_world(world, 4)
+    cfg = SolverConfig(substeps=2)
 
-    cfg_tiny = SolverConfig(substeps=2, slot_capacity=2)
     _, _, diag = jax.jit(
-        lambda w: par.batched_rollout(w, cfg_tiny, cap.max_pairs, 2,
-                                      interpret=True))(worlds)
-    assert int(np.asarray(diag["slot_overflow"])) > 0, (
-        "deliberately tiny slot_capacity must surface an overflow")
+        lambda w: par.batched_rollout(w, cfg, 8, 2))(worlds)
+    assert int(np.asarray(diag["pair_overflow"])) > 0, (
+        "a deliberately tiny pair buffer must surface an overflow")
 
-    cfg_ok = SolverConfig(substeps=2, slot_capacity=8)
     _, _, diag = jax.jit(
-        lambda w: par.batched_rollout(w, cfg_ok, cap.max_pairs, 2,
-                                      interpret=True))(worlds)
-    assert int(np.asarray(diag["slot_overflow"])) == 0
-
-
-def test_joint_overflow_surfaces_in_rollout_diag():
-    """A body attached to more joints than joint_slot_capacity must be
-    counted, not silently truncated."""
-    b = WorldBuilder(gravity=(0.0, 0.0))
-    hub = b.add_body(pos=(0.0, 0.0))
-    b.add_collider(hub, Shape.circle(0.2))
-    n_spokes = 6
-    for i in range(n_spokes):
-        ang = 2 * np.pi * i / n_spokes
-        sat = b.add_body(pos=(2 * np.cos(ang), 2 * np.sin(ang)))
-        b.add_collider(sat, Shape.circle(0.2))
-        b.distance_joint(hub, sat, rest=2.0)
-    n = 128
-    cap = Capacity(max_bodies=n, max_colliders=n, max_pairs=4 * n,
-                   max_joints=n_spokes, max_verts=4)
-    world, cap = b.build(cap)
-    worlds = par.replicate_world(world, 8)
-
-    cfg_tiny = SolverConfig(substeps=2, joint_slot_capacity=2,
-                            joint_solver="jacobi")
-    _, _, diag = jax.jit(
-        lambda w: par.batched_rollout(w, cfg_tiny, cap.max_pairs, 1,
-                                      interpret=True))(worlds)
-    assert int(np.asarray(diag["joint_overflow"])) > 0
-
-    cfg_ok = SolverConfig(substeps=2, joint_slot_capacity=8,
-                          joint_solver="jacobi")
-    _, _, diag = jax.jit(
-        lambda w: par.batched_rollout(w, cfg_ok, cap.max_pairs, 1,
-                                      interpret=True))(worlds)
-    assert int(np.asarray(diag["joint_overflow"])) == 0
-
-
-# ---------------------------------------------------------------------------
-# K-frame broadphase velocity guard (VERDICT r2 item 4)
-# ---------------------------------------------------------------------------
-
-
-def _projectile_scene(n=128):
-    """Momentum-transfer adversary for the K-frame staleness guard, tuned to
-    beat the builder's partner-aware inflation (r3): a simple equal-mass
-    transfer is now COVERED by the tables (the victim's swept box inherits
-    its phase-1 candidates' budgets), so this scene uses the two mechanisms
-    single-hop inflation cannot cover:
-
-    - mass-ratio amplification: a HEAVY projectile (density 50) at 40 u/s
-      gives the light mid ball ~2x its own speed (~78 u/s) — the mid ball's
-      inherited budget (the projectile's 40 u/s sweep) undershoots its real
-      flight by ~2x;
-    - a second hop: the relay ball at x=7 sits outside the projectile's
-      swept box (reach ~5.5 at K=12), so its budget stays ~0; when the mid
-      ball slams into it (~frame 7.8) it acquires ~78 u/s from a standing
-      start and escapes immediately.
-
-    Without the guard, the relay->far pair (far at x=9.5, outside every
-    build-time box) is missed for the rest of the window and the far ball
-    is never hit."""
-    b = WorldBuilder(gravity=(0.0, 0.0))
-    proj = b.add_body(pos=(-3.0, 0.0), vel=(40.0, 0.0))
-    b.add_collider(proj, Shape.circle(0.45), restitution=1.0, density=50.0)
-    mid = b.add_body(pos=(0.0, 0.0))
-    b.add_collider(mid, Shape.circle(0.45), restitution=1.0)
-    relay = b.add_body(pos=(7.0, 0.0))
-    b.add_collider(relay, Shape.circle(0.45), restitution=1.0)
-    far = b.add_body(pos=(9.5, 0.0))
-    b.add_collider(far, Shape.circle(0.45), restitution=1.0)
-    for i in range(n - 4):
-        body = b.add_body(pos=(200.0 + 10.0 * i, 0.0))
-        b.add_collider(body, Shape.circle(0.3))
-    cap = Capacity(max_bodies=n, max_colliders=n, max_pairs=8 * n,
-                   max_joints=0, max_verts=4)
-    world, cap = b.build(cap)
-    return world, cap
-
-
-def test_kframe_guard_catches_momentum_transfer():
-    world, cap = _projectile_scene()
-    worlds = par.replicate_world(world, 8)
-    n_frames = 12
-
-    cfg1 = SolverConfig(substeps=4, slot_capacity=8, frames_per_broadphase=1)
-    cfgK = SolverConfig(substeps=4, slot_capacity=8, frames_per_broadphase=12)
-
-    ref, _, _ = jax.jit(
-        lambda w: par.batched_rollout(w, cfg1, cap.max_pairs, n_frames,
-                                      interpret=True))(worlds)
-    out, _, diag = jax.jit(
-        lambda w: par.batched_rollout(w, cfgK, cap.max_pairs, n_frames,
-                                      interpret=True))(worlds)
-
-    # the guard must have fired (amplified / second-hop speeds blow past the
-    # partner-aware build-time budgets) ...
-    assert int(np.asarray(diag["forced_rebuilds"])) > 0
-    # ... and with it, the K-frame rollout reproduces the per-frame-tables
-    # trajectory: the far ball gets hit instead of being tunneled past
-    np.testing.assert_allclose(
-        np.asarray(out.bodies.pos[:, :4]), np.asarray(ref.bodies.pos[:, :4]),
-        atol=1e-3)
-    # physical sanity: the far ball is actually moving at the end
-    far_speed = float(np.linalg.norm(np.asarray(out.bodies.vel[0, 3])))
-    assert far_speed > 1.0, "momentum never reached the far ball"
+        lambda w: par.batched_rollout(w, cfg, cap.max_pairs, 2))(worlds)
+    assert int(np.asarray(diag["pair_overflow"])) == 0
+    assert int(np.asarray(diag["cell_overflow"])) == 0
 
 
 def test_batched_step_with_diag_surfaces_overflow():
-    """VERDICT r3 item 5: a user stepping a batch FRAME-BY-FRAME through the
-    public API must see the overflow counters the rollout carries — silent
-    truncation through make_batched_step was exactly the SURVEY §4.6 hazard."""
+    """A user stepping a batch FRAME-BY-FRAME through the public API sees
+    the overflow counters the rollout carries — silent truncation through
+    make_batched_step was exactly the SURVEY §4.6 hazard."""
     world, cap = _crowded_scene(cluster=8)
     worlds = par.replicate_world(world, 8)
+    cfg = SolverConfig(substeps=2)
 
-    cfg_tiny = SolverConfig(substeps=2, slot_capacity=2)
-    assert par.frame2_shapes_ok(worlds, cfg_tiny)
-    step_d = jax.jit(lambda w: par.batched_step(
-        w, cfg_tiny, cap.max_pairs, with_diag=True, interpret=True))
+    step_d = jax.jit(lambda w: par.batched_step(w, cfg, 8, with_diag=True))
     w2, diag = step_d(worlds)
-    assert int(np.asarray(diag["slot_overflow"])) > 0, (
-        "deliberately tiny slot_capacity must surface in the per-step diag")
+    assert int(np.asarray(diag["pair_overflow"])) > 0, (
+        "a deliberately tiny pair buffer must surface in the per-step diag")
     # stepping again from the returned state keeps reporting
     _, diag2 = step_d(w2)
-    assert set(diag2) == {"slot_overflow", "margin_dropped", "spec_dropped",
-                          "joint_overflow", "owner_overflow"}
+    assert set(diag2) == {"pair_overflow", "cell_overflow"}
+    assert int(np.asarray(diag2["pair_overflow"])) > 0
 
-    cfg_ok = SolverConfig(substeps=2, slot_capacity=8)
     _, diag = jax.jit(lambda w: par.batched_step(
-        w, cfg_ok, cap.max_pairs, with_diag=True, interpret=True))(worlds)
-    assert int(np.asarray(diag["slot_overflow"])) == 0
+        w, cfg, cap.max_pairs, with_diag=True))(worlds)
+    assert int(np.asarray(diag["pair_overflow"])) == 0
 
     # the world-only shape is unchanged (no diag unless asked)
-    w_only = jax.jit(lambda w: par.batched_step(
-        w, cfg_ok, cap.max_pairs, interpret=True))(worlds)
+    w_only = jax.jit(lambda w: par.batched_step(w, cfg, cap.max_pairs))(worlds)
     assert w_only.bodies.pos.shape == worlds.bodies.pos.shape
 
 
 def test_batched_step_with_diag_vmap_path():
-    """The vmap (non-kernel) path reports pair-buffer overflow through the
-    same with_diag surface."""
+    """The grid broadphase's cell overflow reaches the same with_diag
+    surface: a one-entry cell fan-out under the stacked cluster."""
     world, cap = _crowded_scene(cluster=8)
     worlds = par.replicate_world(world, 4)
-    import dataclasses
-
-    cfg = SolverConfig(substeps=2, use_pallas=False)
-    # max_pairs far below the 28 true pairs in the cluster
+    cfg = SolverConfig(substeps=2, broadphase="grid", grid_cell_capacity=1)
     _, diag = jax.jit(lambda w: par.batched_step(
-        w, cfg, 8, with_diag=True))(worlds)
-    assert int(np.asarray(diag["slot_overflow"])) > 0
-    assert "cell_overflow" in diag
+        w, cfg, cap.max_pairs, with_diag=True))(worlds)
+    assert int(np.asarray(diag["cell_overflow"])) > 0
